@@ -1,0 +1,192 @@
+"""Bloom filter build and query kernels for batched sync.
+
+Hopper counterparts of the JAX package's Pallas kernels
+(``tpu/pallas_kernels.py``: ``bloom_build`` and ``bloom_query``), written in
+CUDA C++ in ``csrc/bloom.cu`` (see the note there for the design and what
+bounds them). Each wrapper here checks its inputs, allocates its outputs
+and launches the kernel on the current stream when the tensors lie on the
+card; for tensors on the CPU it runs the plain PyTorch version beside it,
+which the CPU tests hold against the JAX package.
+
+Hash words are uint32 bit patterns carried in int32 tensors (torch's
+uint32 lacks add, shift and modulo on the CPU): ``np.uint32`` arrays enter
+with ``.view(np.int32)``, the kernels read them as uint32, and the plain
+versions widen to int64 and wrap each add at 2^32 before the modulo,
+exactly as JAX's uint32 arithmetic does.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import load
+from ..sync import BITS_PER_ENTRY, NUM_PROBES
+
+WORD_BITS = 32
+_U32 = 0xFFFFFFFF
+
+#: launches of each kernel on the card (the CPU path never counts)
+LAUNCHES = {"bloom_build": 0, "bloom_query": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def filter_modulo(counts):
+    """Bit size of a filter with the given entry count (sync.js:45):
+    ``8 * ceil(counts * 10 / 8)``, int32."""
+    c = counts.long()
+    return (8 * ((c * BITS_PER_ENTRY + 7) // 8)).to(torch.int32)
+
+
+def _to_i32_bits(v):
+    """int64 values in [0, 2^32) -> int32 tensor with the same bits."""
+    return (v - ((v >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def _probes(xyz, modulo):
+    """[NUM_PROBES, B, N] int64 probe positions; xyz [B, N, 3] int32 bits,
+    modulo [B]."""
+    m = modulo.long().clamp(min=1)[:, None]
+    u = xyz.long() & _U32
+    x, y, z = u[..., 0] % m, u[..., 1] % m, u[..., 2] % m
+    out = [x]
+    for _ in range(NUM_PROBES - 1):
+        x = ((x + y) & _U32) % m
+        y = ((y + z) & _U32) % m
+        out.append(x)
+    return torch.stack(out)
+
+
+def bloom_build_plain(xyz, counts, num_words: int):
+    """Plain version of the build kernel. xyz [B, E, 3] int32 (uint32
+    bits), counts [B] int32 -> (words [B, num_words] int32 bits,
+    modulo [B] int32)."""
+    batch, width, _ = xyz.shape
+    modulo = filter_modulo(counts)
+    p = _probes(xyz, modulo)  # [P, B, E]
+    live = torch.arange(width, device=xyz.device)[None, :] < counts.long()[:, None]
+    keep = live[None] & (p < num_words * WORD_BITS)
+    b_idx = torch.arange(batch, device=xyz.device)[None, :, None].expand_as(p)
+    bits = torch.zeros(batch, num_words * WORD_BITS, dtype=torch.bool,
+                       device=xyz.device)
+    bits[b_idx[keep], p[keep]] = True
+    weights = torch.ones(WORD_BITS, dtype=torch.int64, device=xyz.device)
+    weights = weights << torch.arange(WORD_BITS, device=xyz.device)
+    words = (bits.view(batch, num_words, WORD_BITS).long() * weights).sum(-1)
+    return _to_i32_bits(words), modulo
+
+
+def bloom_query_plain(words, modulo, counts, query_xyz):
+    """Plain version of the query kernel. words [B, W] int32 bits, modulo
+    and counts [B] int32, query_xyz [B, C, 3] int32 bits -> [B, C] bool."""
+    batch, num_words = words.shape
+    p = _probes(query_xyz, modulo)  # [P, B, C]
+    w_idx = (p // WORD_BITS).clamp(max=num_words - 1)
+    row = (words.long() & _U32)[None].expand(NUM_PROBES, batch, num_words)
+    got = torch.gather(row, 2, w_idx)
+    bit = (got >> (p % WORD_BITS)) & 1
+    return (bit == 1).all(0) & (counts[:, None] > 0)
+
+
+def _check(name, t, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _lib():
+    lib = load("bloom")
+    if not getattr(lib, "_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.bloom_build_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.bloom_build_launch.restype = ci
+        lib.bloom_query_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.bloom_query_launch.restype = ci
+        lib.bloom_build_smem_limit.argtypes = [ci]
+        lib.bloom_build_smem_limit.restype = ci
+        lib._bound = True
+    return lib
+
+
+def bloom_build(xyz, counts, num_words: int):
+    """Builds B Bloom filters: xyz [B, E, 3] int32 (uint32 bits), counts
+    [B] int32 -> (words [B, num_words] int32 bits, modulo [B] int32).
+    Launches ``bloom_build_kernel`` for card tensors, the plain version
+    for CPU tensors."""
+    if xyz.device.type == "cpu":
+        return bloom_build_plain(xyz, counts, num_words)
+    batch, width, _ = xyz.shape
+    _check("xyz", xyz, torch.int32, (batch, width, 3))
+    _check("counts", counts, torch.int32, (batch,))
+    if counts.device != xyz.device:
+        raise ValueError("xyz and counts must be on one device")
+    if num_words < 1:
+        raise ValueError("num_words must be positive")
+    lib = _lib()
+    dev = xyz.device.index if xyz.device.index is not None else torch.cuda.current_device()
+    smem = num_words * 4
+    if smem > lib.bloom_build_smem_limit(dev):
+        raise ValueError(
+            f"a {num_words}-word filter row ({smem} bytes) does not fit in "
+            "one block's shared memory"
+        )
+    words = torch.empty(batch, num_words, dtype=torch.int32, device=xyz.device)
+    modulo = torch.empty(batch, dtype=torch.int32, device=xyz.device)
+    if batch == 0:
+        return words, modulo
+    threads = min(256, max(32, -(-width // 32) * 32))
+    err = lib.bloom_build_launch(
+        _ptr(xyz), _ptr(counts), _ptr(words), _ptr(modulo), batch, width,
+        num_words, threads, _stream(xyz.device),
+    )
+    if err:
+        raise RuntimeError(f"bloom_build_kernel launch failed: CUDA error {err}")
+    LAUNCHES["bloom_build"] += 1
+    return words, modulo
+
+
+def bloom_query(words, modulo, counts, query_xyz):
+    """Tests C candidate hashes against each of B filters: words [B, W]
+    int32 bits, modulo and counts [B] int32, query_xyz [B, C, 3] int32
+    bits -> contained [B, C] bool (False for empty filters). Launches
+    ``bloom_query_kernel`` for card tensors, the plain version for CPU
+    tensors."""
+    if words.device.type == "cpu":
+        return bloom_query_plain(words, modulo, counts, query_xyz)
+    batch, num_words = words.shape
+    cand = query_xyz.shape[1]
+    _check("words", words, torch.int32, (batch, num_words))
+    _check("modulo", modulo, torch.int32, (batch,))
+    _check("counts", counts, torch.int32, (batch,))
+    _check("query_xyz", query_xyz, torch.int32, (batch, cand, 3))
+    if len({t.device for t in (words, modulo, counts, query_xyz)}) != 1:
+        raise ValueError("bloom_query inputs must be on one device")
+    if num_words < 1:
+        raise ValueError("filters need at least one word")
+    out = torch.empty(batch, cand, dtype=torch.bool, device=words.device)
+    if batch * cand == 0:
+        return out
+    err = _lib().bloom_query_launch(
+        _ptr(words), _ptr(modulo), _ptr(counts), _ptr(query_xyz), _ptr(out),
+        batch, cand, num_words, _stream(words.device),
+    )
+    if err:
+        raise RuntimeError(f"bloom_query_kernel launch failed: CUDA error {err}")
+    LAUNCHES["bloom_query"] += 1
+    return out

@@ -1,0 +1,107 @@
+"""Batched sync-protocol helpers: Bloom filter construction and querying for
+thousands of (document, peer) pairs on the card.
+
+PyTorch counterpart of the JAX package's ``tpu/sync_batch.py``. The wire
+format is unchanged from the single-document protocol (sync.py, reference
+backend/sync.js): 10 bits/entry, 7 probes, triple hashing from the first 12
+bytes of each SHA-256 change hash (sync.js:88). A replica farm syncing B
+documents evaluates all filters in one kernel launch
+(``bloom_kernels.bloom_build`` / ``bloom_query``) instead of B loops.
+
+Filters are padded to a common word capacity; each filter's true bit count
+(``modulo`` = 8 * ceil(entries * 10 / 8)) rides along as data. Hash words
+are uint32 bit patterns carried in int32 tensors (bloom_kernels.py).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..codecs import Encoder, hex_to_bytes
+from ..obs.metrics import get_metrics
+from ..sync import BITS_PER_ENTRY, NUM_PROBES
+from .bloom_kernels import WORD_BITS, bloom_build, bloom_query, filter_modulo
+
+__all__ = [
+    "WORD_BITS", "build_filters", "filter_modulo", "filters_to_bytes",
+    "hash_to_xyz", "pack_hashes", "query_filters",
+]
+
+_M_FILTERS_BUILT = get_metrics().counter(
+    "sync.filters.built", "Bloom filters built on device and serialised"
+)
+_M_FILTER_BYTES = get_metrics().counter(
+    "sync.filters.bytes", "wire bytes of serialised device-built filters"
+)
+
+
+def hash_to_xyz(hash_hex: str) -> tuple[int, int, int]:
+    """First 12 bytes of the hash as three little-endian uint32s."""
+    data = hex_to_bytes(hash_hex)
+    return (
+        int.from_bytes(data[0:4], "little"),
+        int.from_bytes(data[4:8], "little"),
+        int.from_bytes(data[8:12], "little"),
+    )
+
+
+def pack_hashes(hash_lists, width=None):
+    """Packs per-filter hash lists into a [B, E, 3] uint32 xyz array plus a
+    [B] int32 count vector (host numpy). Padded entries are zero and
+    masked by the count."""
+    batch = len(hash_lists)
+    width = width or max((len(h) for h in hash_lists), default=1) or 1
+    xyz = np.zeros((batch, width, 3), np.uint32)
+    counts = np.zeros((batch,), np.int32)
+    for b, hashes in enumerate(hash_lists):
+        counts[b] = len(hashes)
+        if hashes:
+            raw = b"".join(hex_to_bytes(h)[:12] for h in hashes)
+            xyz[b, : len(hashes)] = np.frombuffer(raw, "<u4").reshape(-1, 3)
+    return xyz, counts
+
+
+def build_filters(xyz, counts, num_words: int):
+    """Builds B Bloom filters at once. xyz: [B, E, 3] int32 tensor of
+    uint32 bits; counts: [B] int32. Returns (words [B, W] int32 bits,
+    modulo [B] int32) on the inputs' device."""
+    return bloom_build(xyz, counts, num_words)
+
+
+def query_filters(words, modulo, counts, query_xyz):
+    """Tests C candidate hashes against each of B filters in one launch.
+    query_xyz: [B, C, 3] int32 bits. Returns contained: [B, C] bool (False
+    for empty filters, matching BloomFilter.contains_hash on zero
+    entries)."""
+    return bloom_query(words, modulo, counts, query_xyz)
+
+
+def filters_to_bytes(words, modulo, counts):
+    """Serialises filters into the reference wire format (sync.js:68:
+    numEntries, bitsPerEntry, numProbes, bits). Accepts tensors or numpy
+    arrays; word rows are written as little-endian uint32."""
+    words = np.ascontiguousarray(_host(words))
+    if words.dtype == np.int32:
+        words = words.view(np.uint32)  # the int32 carrier's uint32 bits
+    words = words.astype("<u4", copy=False)
+    modulo = np.asarray(_host(modulo))
+    counts = np.asarray(_host(counts))
+    out = []
+    for b in range(words.shape[0]):
+        if counts[b] == 0:
+            out.append(b"")
+            continue
+        encoder = Encoder()
+        encoder.append_uint32(int(counts[b]))
+        encoder.append_uint32(BITS_PER_ENTRY)
+        encoder.append_uint32(NUM_PROBES)
+        num_bytes = int(modulo[b]) // 8
+        encoder.append_raw_bytes(words[b].tobytes()[:num_bytes])
+        out.append(encoder.buffer)
+    if _M_FILTERS_BUILT.enabled:
+        _M_FILTERS_BUILT.inc(sum(1 for blob in out if blob))
+        _M_FILTER_BYTES.inc(sum(len(blob) for blob in out))
+    return out
+
+
+def _host(a):
+    return a.cpu().numpy() if hasattr(a, "cpu") else a

@@ -1,0 +1,45 @@
+"""The port stands alone: importing automerge_tpu_torch (its farm and its
+SyncFarm included) loads neither JAX nor anything of the JAX package, and
+its entry points refuse to fall back to the CPU when no card is present."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+PROBE = """
+import sys
+import automerge_tpu_torch
+import automerge_tpu_torch.carry
+import automerge_tpu_torch.kernels
+from automerge_tpu_torch.tpu.farm import TorchDocFarm
+from automerge_tpu_torch.tpu.sync_farm import SyncFarm
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+    or m == "automerge_tpu" or m.startswith("automerge_tpu.")
+)
+print("LEAKED=" + ",".join(leaked))
+"""
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED=\n" in out.stdout, out.stdout
+
+
+def test_farm_defaults_to_the_card():
+    from automerge_tpu_torch import TorchDocFarm
+
+    if torch.cuda.is_available():
+        assert TorchDocFarm(1, capacity=8).engine.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TorchDocFarm(1, capacity=8)
