@@ -19,7 +19,10 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = {"bloom": _PKG / "csrc" / "bloom.cu"}
+SOURCES = {
+    "bloom": _PKG / "csrc" / "bloom.cu",
+    "leb128": _PKG / "csrc" / "leb128.cu",
+}
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,3 +90,30 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+# ---------------------------------------------------------------------- #
+# helpers the kernel wrappers share
+
+
+def check_tensor(name, t, dtype, shape) -> None:
+    """Raises unless `t` has the dtype and shape a kernel takes and is
+    contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    """The current CUDA stream of `device`, for a kernel launcher."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def tensor_ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

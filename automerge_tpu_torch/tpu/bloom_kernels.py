@@ -20,7 +20,10 @@ import ctypes
 
 import torch
 
+from ..kernels import check_tensor as _check
 from ..kernels import load
+from ..kernels import stream_ptr as _stream
+from ..kernels import tensor_ptr as _ptr
 from ..sync import BITS_PER_ENTRY, NUM_PROBES
 
 WORD_BITS = 32
@@ -90,24 +93,6 @@ def bloom_query_plain(words, modulo, counts, query_xyz):
     got = torch.gather(row, 2, w_idx)
     bit = (got >> (p % WORD_BITS)) & 1
     return (bit == 1).all(0) & (counts[:, None] > 0)
-
-
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _lib():

@@ -35,15 +35,19 @@ chain). The farm's delivery hot path and the
 sync receive paths call ``warm_decode_cache`` to decode all cache misses
 of a delivery together in one batch.
 
-This is the host half of the JAX package's decode module. Its device
-assist for byte tensors already on the card (``leb128_scan_device`` and
-the segmented-sum kernel under it) is not part of this slice; the NumPy
-pass below is what the farm runs.
+A device assist exists for byte tensors already on the card:
+``leb128_scan_device`` builds the boundary mask, segment ids and payload
+planes in torch and reduces the planes per varint with the hand-written
+CUDA segmented sum (``leb_kernels.leb128_segment_sum``, ``csrc/leb128.cu``).
+It returns what ``leb128_scan`` returns. The NumPy host pass is what the
+farm and the sync paths run everywhere; the device scan is an entry point
+of its own, as in the JAX package.
 """
 # amlint: hot-path
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import columnar
 from ..codecs import MAX_SAFE_INTEGER, Decoder
@@ -541,6 +545,48 @@ def warm_decode_cache(buffers) -> int:
             cache.put(k, res)
             decoded += 1
     return decoded
+
+
+# ---------------------------------------------------------------------- #
+# device path: torch + the CUDA segmented sum for byte tensors on the card
+
+def leb128_scan_device(data: torch.Tensor):
+    """leb128_scan for a uint8 tensor: boundary mask, segment ids and
+    payload planes as torch ops on the tensor's device, the per-varint
+    plane reduction through ``leb_kernels.leb128_segment_sum`` (the CUDA
+    kernel for a card tensor, its plain version for a CPU one). Returns
+    the same (starts, lengths, unsigned, signed) tuple as the NumPy pass,
+    as host arrays, and raises the same _Fallback cases."""
+    from .leb_kernels import leb128_segment_sum
+
+    n = int(data.shape[0])
+    if n == 0:
+        e = np.empty(0, np.int64)
+        return e, e, e, e
+    is_end = (data & 0x80) == 0
+    if not bool(is_end[-1]):
+        raise _Fallback("stream ends inside a varint")
+    end_i = is_end.to(torch.int32)
+    seg = torch.cumsum(end_i, 0, dtype=torch.int32) - end_i
+    nvar = int(seg[-1]) + 1
+    ends = torch.nonzero(is_end).flatten()
+    starts = torch.cat([ends.new_zeros(1), ends[:-1] + 1])
+    lengths = ends + 1 - starts
+    if int(lengths.max()) > 8:
+        raise _Fallback("varint wider than 8 bytes")
+    pos = torch.arange(n, device=data.device) - starts[seg.long()]
+    contrib = (data & 0x7F).long() << (7 * pos)
+    # 14-bit planes keep every float32 partial sum an exact integer
+    planes = torch.stack(
+        [(contrib >> (14 * k)) & 0x3FFF for k in range(4)], dim=1
+    ).float()
+    sums = leb128_segment_sum(planes, seg, nvar)
+    unsigned = sum(sums[:, k].long() << (14 * k) for k in range(4))
+    sign = (data[ends] & 0x40) != 0
+    signed = unsigned - (sign.long() << (7 * lengths))
+    return tuple(
+        t.cpu().numpy() for t in (starts, lengths, unsigned, signed)
+    )
 
 
 # register the vectorized backend with the host-only codec layer

@@ -27,10 +27,24 @@ linked through parent props up to the root (setupPatches, new.js:1461),
 counters emitted with per-target accumulated totals (new.js:937-965),
 deleted keys as empty conflict maps.
 
+Map-family keys (maps, tables, counters, nested trees) get reference-exact
+patch parity via the batched device path. List/text objects additionally
+run through the reference merge walk (the sequential engine in opset.py,
+embedded lazily per document): the reference's incremental list edit
+stream is an order-dependent state machine (listIndex increments only
+after updatePatchProperty at insert boundaries, propState action
+conversions, appendUpdate conflict popping — new.js:747-1033) whose output
+is not a function of (old state, new state) alone, so no state diff can
+reproduce it byte for byte. Documents that have never seen a list op pay
+nothing for this; the first list op replays that doc's committed changes
+through the walk once, and from then on its incremental patches are
+byte-exact by construction. The device engine still carries every doc's
+rows (list rows included: element forests feed the batched RGA rank in
+rga.py) for whole-document reads, conflict winners and counter totals.
+
 Not in this package yet (each raises ``NotPortedError`` naming its slice,
-before anything commits): changes that target list/text objects and the
-degraded walk after a failed device dispatch (both need the sequential
-``opset`` engine), and the persistence tier (``attach_store``).
+before anything commits): the degraded walk that serves documents after a
+failed device dispatch, and the persistence tier (``attach_store``).
 
 Fault isolation: under the default ``isolation="doc"`` every document is
 its own fault domain — a poisoned delivery (corrupt bytes, causal
@@ -61,6 +75,7 @@ from ..errors import (
     error_kind,
 )
 from ..obs.metrics import get_metrics
+from ..opset import OpSet, append_edit
 from .engine import (
     ACTION_DEL,
     ACTION_INC,
@@ -72,6 +87,7 @@ from .engine import (
     _MKEY_OP_BITS,
     changes_from_numpy,
 )
+from . import rga
 from .transcode import (
     DEP_COMMITTED,
     DEP_UNKNOWN,
@@ -99,6 +115,46 @@ class ChildObj(NamedTuple):
 
 
 _ROOT_META = {"parentObj": None, "parentKey": None, "type": "map"}
+
+
+def replay_walk(changes, queue) -> OpSet:
+    """A document's reference walk rebuilt from its committed change log
+    (buffers) and its queued decoded changes, re-delivered one by one."""
+    opset = OpSet()
+    if changes:
+        opset.apply_changes(list(changes))
+    # amlint: disable=AM107 — cold path: one-time OpSet rebuild when a doc
+    # first needs the reference walk
+    for change in queue:
+        opset.apply_changes([change["buffer"]])
+    return opset
+
+
+# change hash -> (targets a list/text object, list inserts): the hash is
+# sha256 over the change bytes, so every farm may share an entry, and a
+# change gossiped to many documents and farms is scanned once
+_LIST_PROFILES: dict[str, tuple[bool, int]] = {}
+_LIST_PROFILES_MAX = 1 << 16
+
+
+def _list_profile(change) -> tuple[bool, int]:
+    """Whether a decoded change has a list/text op, and how many list
+    inserts it makes (the walk's routing test and the element-capacity
+    check of `_prevalidate_limits` both read this)."""
+    h = change["hash"]
+    out = _LIST_PROFILES.get(h)
+    if out is None:
+        touches, inserts = False, 0
+        for op in change["ops"]:
+            if op.get("insert"):
+                touches, inserts = True, inserts + 1
+            elif op.get("elemId") is not None:
+                touches = True
+        out = (touches, inserts)
+        if len(_LIST_PROFILES) >= _LIST_PROFILES_MAX:
+            _LIST_PROFILES.clear()
+        _LIST_PROFILES[h] = out
+    return out
 
 
 def _remap_packed(col, amap):
@@ -129,6 +185,9 @@ _M_PAD_RATIO = _METRICS.gauge(
 )
 _M_OCCUPANCY = _METRICS.histogram(
     "farm.batch.occupancy", "rows / cells fill ratio per packed batch"
+)
+_M_WALKS = _METRICS.counter(
+    "farm.exact.walks", "documents served by the embedded reference walk"
 )
 _M_ABORTS = _METRICS.counter(
     "farm.prevalidation.aborts",
@@ -278,9 +337,10 @@ class _ChangeCols:
     `_op_rows` recorded as replayable data. A change gossiped to N
     documents builds its columns a single time; committing it to a doc
     replays the recorded effects (counter registration, inc max-merge,
-    child metas) without any per-op Python. Unknown actions are
-    uncacheable (`_build_change_cols` returns None): their docs route through the
-    scalar oracle chain, which owns the canonical error."""
+    child metas) without any per-op Python. List/text ops and unknown
+    actions are uncacheable (`_build_change_cols` returns None): they
+    mutate order-dependent per-doc element state, so their docs route
+    through the scalar oracle chain."""
 
     __slots__ = (
         "hash", "actor", "seq", "deps", "max_ctr", "arr", "counter_packed",
@@ -392,6 +452,20 @@ class TorchDocFarm:
         # reference's objectMeta children map, new.js:426) used by the
         # setupPatches ancestor-linking walk
         self.children = [{} for _ in range(num_docs)]
+        # list/text element tables (rank inputs): one forest per doc
+        # spanning ALL of its list objects — per-object document order is
+        # the global RGA preorder filtered by owning object (rga.py)
+        self.elem_capacity = 64
+        self.elem_opid = np.zeros((num_docs, self.elem_capacity), np.int64)
+        self.elem_parent = np.full((num_docs, self.elem_capacity), -1, np.int32)
+        self.num_elems = np.zeros(num_docs, np.int32)
+        self.elem_index = [{} for _ in range(num_docs)]  # elemId -> local idx
+        self.elem_ids = [[] for _ in range(num_docs)]  # local idx -> elemId
+        self.elem_object = [[] for _ in range(num_docs)]  # local idx -> objectId
+        # reference merge walk per doc, created lazily on the first op that
+        # targets a list/text object (see module docstring): authoritative
+        # for that doc's incremental patch stream from then on
+        self.exact: list[OpSet | None] = [None] * num_docs
         # fault-isolation state (isolation="doc"): consecutive failure
         # streaks and the quarantine set (doc -> last cause)
         self.quarantine_threshold = quarantine_threshold
@@ -441,7 +515,7 @@ class TorchDocFarm:
         markers share the primary's opId and sort directly after it (stable
         sort + left-searchsorted), so opId lookups always hit the primary."""
         if "key" not in op or op.get("insert") or op.get("elemId") is not None:
-            raise NotPortedError("opset", "a list/text op")
+            return self._list_op_rows(d, op, ctr, actor)
         obj, key = op["obj"], op["key"]
         if obj not in self.object_meta[d]:
             raise CausalityError(f"op for missing object {obj}")
@@ -497,11 +571,129 @@ class TorchDocFarm:
         self._child_value_ids.add(value)
         return value
 
+    def _grow_elems(self, needed: int):
+        if needed > rga.MAX_ELEMS:
+            raise PackingLimitError(
+                f"document exceeds {rga.MAX_ELEMS} list elements (incl. "
+                "tombstones): beyond the rank kernel's key-packing range"
+            )
+        while needed > self.elem_capacity:
+            pad = self.elem_capacity
+            self.elem_opid = np.concatenate(
+                [self.elem_opid, np.zeros((self.num_docs, pad), np.int64)], axis=1
+            )
+            self.elem_parent = np.concatenate(
+                [self.elem_parent, np.full((self.num_docs, pad), -1, np.int32)],
+                axis=1,
+            )
+            self.elem_capacity *= 2
+
+    def _list_op_rows(self, d: int, op: dict, ctr: int, actor: str):
+        """Dense rows for one list/text op. Inserts register the element in
+        the doc's forest (parent = the referenced element, -1 for _head) and
+        key all engine rows by the element's id, so per-element conflict
+        resolution rides the same device programs as map keys; document
+        order comes from the batched RGA rank (rga.py)."""
+        obj = op["obj"]
+        meta = self.object_meta[d].get(obj)
+        if meta is None:
+            raise CausalityError(f"op for missing object {obj}")
+        if meta["type"] not in ("list", "text"):
+            raise CausalityError(f"list op for non-list object {obj}")
+        packed = (ctr << ACTOR_BITS) | self.actors.intern(actor)
+        preds = [self._pack_opid(p) for p in op.get("pred", ())]
+        action = op["action"]
+
+        if op.get("insert"):
+            # counter range is enforced batch-wide by _prevalidate_limits
+            # before any transcoding starts (the single enforcement point);
+            # this only restates the invariant for direct-row callers
+            assert ctr < rga.MAX_COUNTER, "op counter outside merge-key packing range"
+            elem_id = f"{ctr}@{actor}"
+            ref = op.get("elemId") or "_head"
+            idx = int(self.num_elems[d])
+            self._grow_elems(idx + 1)
+            self.num_elems[d] += 1
+            self.elem_opid[d, idx] = packed
+            if ref == "_head":
+                self.elem_parent[d, idx] = -1
+            elif ref in self.elem_index[d]:
+                self.elem_parent[d, idx] = self.elem_index[d][ref]
+            else:
+                raise CausalityError(f"unknown list element {ref}")
+            self.elem_index[d][elem_id] = idx
+            self.elem_ids[d].append(elem_id)
+            self.elem_object[d].append(obj)
+            key_elem = elem_id
+        else:
+            key_elem = op["elemId"]
+            if key_elem not in self.elem_index[d]:
+                raise CausalityError(f"unknown list element {key_elem}")
+        slot = self.slots.intern((obj, key_elem))
+
+        if action == "set":
+            datatype = op.get("datatype")
+            if datatype == "counter":
+                self.counter_ops[d].add(packed)
+                value = int(op["value"])
+            else:
+                value = self.values.intern(ValueCell(op.get("value"), datatype))
+            rows = [(slot, packed, ACTION_SET, value, preds[0] if preds else -1)]
+        elif action in _MAKE_TYPES:
+            value = self._register_child(d, obj, key_elem, action, ctr, actor)
+            rows = [(slot, packed, ACTION_SET, value, preds[0] if preds else -1)]
+        elif action == "inc":
+            lam = (ctr, actor)
+            for target in op.get("pred", ()):
+                t = self._pack_opid(target)
+                if t not in self.inc_max[d] or self.inc_max[d][t] < lam:
+                    self.inc_max[d][t] = lam
+            rows = [(slot, packed, ACTION_INC, int(op["value"]),
+                     preds[-1] if preds else -1)]
+            for extra in preds[:-1]:
+                self.starved[d].add(extra)
+                rows.append((slot, packed, ACTION_INC, 0, extra))
+            return rows
+        elif action == "del":
+            rows = [(slot, packed, ACTION_DEL, 0, preds[0] if preds else -1)]
+        else:
+            raise NotImplementedError(f"list op action {action!r}")
+        for extra in preds[1:]:
+            rows.append((slot, packed, ACTION_DEL, 0, extra))
+        return rows
+
+    def _element_ranks(self, d: int):
+        """Device RGA document order of doc `d`'s element forest: rank per
+        element index (the JAX farm ranks every doc's forest at once; each
+        doc's ranks depend on its own forest only)."""
+        from .text_engine import _next_pow2
+
+        dev = self.engine.device
+        n = int(self.num_elems[d])
+        width = max(_next_pow2(n), 1)
+        rank = actor_rank_table(
+            self.actors.table,
+            pad_to=_next_pow2(max(len(self.actors.table), 1)),
+        )
+        parent = np.full((1, width), -1, np.int32)
+        opid = np.zeros((1, width), np.int64)
+        parent[0, :n] = self.elem_parent[d, :n]
+        opid[0, :n] = self.elem_opid[d, :n]
+        valid = torch.arange(width, device=dev)[None, :] < n
+        ranks = rga.batched_rga_rank(
+            torch.from_numpy(parent).to(dev), torch.from_numpy(opid).to(dev),
+            valid, torch.from_numpy(rank).to(dev),
+        )
+        return ranks[0, :n].cpu().numpy()
+
     def _actor_rank(self):
         n = len(self.actors.table)
         if self._rank_cache[0] != n:  # the interner only ever grows
             self._rank_cache = (n, actor_rank_table(self.actors.table))
         return self._rank_cache[1]
+
+    def _lamport(self, packed: int):
+        return (packed >> ACTOR_BITS, self.actors.lookup(packed & ACTOR_MASK))
 
     # ------------------------------------------------------------------ #
     # run segmentation and patch cutoffs
@@ -549,9 +741,9 @@ class TorchDocFarm:
                 last_batch = gate_batch
             key = op.get("key")
             if key is None or op.get("insert") or op.get("elemId") is not None:
-                # list/text ops never produce map-key cutoffs (deliveries
-                # carrying them are refused before the gate); a list op here
-                # can only mean a new op kind leaked in — close the run safely
+                # list/text ops never produce map-key cutoffs (docs touching
+                # them are served by the reference walk); a list op here can
+                # only mean a new op kind leaked in — close the run safely
                 close(run)
                 run = None
                 continue
@@ -938,28 +1130,39 @@ class TorchDocFarm:
         return out
 
     # ------------------------------------------------------------------ #
-    # list/text changes need the sequential engine (not ported yet)
+    # the reference merge walk (lazily embedded per doc)
+
+    def _ensure_exact(self, d: int) -> OpSet:
+        """Bootstraps the reference walk for doc `d` from its committed
+        change log and queue, so the walk's state matches the farm's
+        exactly from this call onward."""
+        if self.exact[d] is None:
+            self.exact[d] = replay_walk(self.changes[d], self.queue[d])
+        return self.exact[d]
 
     @staticmethod
     def _targets_list(decoded_changes) -> bool:
-        return any(
-            op.get("insert") or op.get("elemId") is not None
-            for change in decoded_changes
-            for op in change["ops"]
-        )
+        return any(_list_profile(change)[0] for change in decoded_changes)
 
     def _prevalidate_limits(self, d: int, decoded_changes) -> None:
-        """Raises the farm's packing-limit error BEFORE anything commits, so
-        a failed apply leaves all state untouched: every op counter must
-        stay below 2^24, because the merge key packs
+        """Raises the farm's packing-limit errors BEFORE anything commits,
+        so a failed apply leaves all state untouched.
+
+        Every op counter must stay below 2^24, because the merge key packs
         (slot << 44 | ctr << 20 | actor) for all ops (engine._merge_key).
-        Queued changes are re-scanned (they may become ready in this call);
-        changes already applied are skipped.
+        The element-capacity estimate counts list inserts from this
+        delivery plus the queue (queued changes may become ready in this
+        call) against the rank's MAX_ELEMS, and skips changes already
+        applied (duplicates never re-apply).
 
         Under isolation="doc" an over-limit document quarantines only its
         own delivery; under isolation="batch" the pre-pass runs for every
         doc before any doc commits, so one over-limit document fails the
-        whole call with every document untouched."""
+        whole call with every document untouched. The queue estimate is
+        conservative: a permanently stuck queued change with inserts keeps
+        shrinking the doc's element budget."""
+        inserts = 0
+        insert_hashes = set()
         seen = set()
         for change in list(decoded_changes) + list(self.queue[d]):
             if change["hash"] in self.change_index_by_hash[d] or change["hash"] in seen:
@@ -973,6 +1176,17 @@ class TorchDocFarm:
                 )
                 exc.offending_hashes = (change["hash"],)
                 raise exc
+            n_ins = _list_profile(change)[1]
+            if n_ins:
+                inserts += n_ins
+                insert_hashes.add(change["hash"])
+        if int(self.num_elems[d]) + inserts > rga.MAX_ELEMS:
+            exc = PackingLimitError(
+                f"document exceeds {rga.MAX_ELEMS} list elements (incl. "
+                "tombstones): beyond the rank kernel's key-packing range"
+            )
+            exc.offending_hashes = tuple(sorted(insert_hashes))
+            raise exc
 
     # ------------------------------------------------------------------ #
     # the batched applyChanges step
@@ -985,8 +1199,8 @@ class TorchDocFarm:
         of change buffers.
 
         Isolation modes:
-        - ``"doc"`` (default): decode, prevalidation and gate failures are
-          captured PER DOCUMENT — healthy docs proceed through transcode,
+        - ``"doc"`` (default): decode, prevalidation, walk and gate failures
+          are captured PER DOCUMENT — healthy docs proceed through transcode,
           pack and device dispatch in the same call, the failing doc's
           state stays untouched (snapshot/rollback around the commit
           phase) and its outcome reports ``quarantined(error,
@@ -997,17 +1211,17 @@ class TorchDocFarm:
           raises out of the call (prevalidation aborts the whole batch
           before anything commits).
 
-        A delivery with a change that targets a list/text object raises
-        ``NotPortedError`` before anything commits, in both modes. So does
-        a failed device dispatch under ``"doc"``, after rolling every doc
-        of the call back: the JAX farm serves that case through the
-        sequential walk, which this package has not ported.
+        A failed device dispatch under ``"doc"`` rolls every doc of the call
+        back and raises ``NotPortedError``: the JAX farm bisects and serves
+        the survivors through the degraded walk, which this package has not
+        ported.
 
         Phases (recorded on the ambient PhaseProfile): decode ->
-        gate_verdicts -> transcode_columns -> gate+transcode (scalar
-        oracle) -> pack -> device_dispatch -> visibility (host mirror
-        merge + scoped device readback of stale spans) -> patch_assembly
-        (vectorized over the mirror)."""
+        prevalidate -> walk (docs with list/text objects) -> gate_verdicts ->
+        transcode_columns -> gate+transcode (scalar oracle) -> pack ->
+        device_dispatch -> visibility (host mirror merge + scoped device
+        readback of stale spans) -> patch_assembly (vectorized over the
+        mirror)."""
         from ..profiling import get_profile
 
         if isolation not in ("doc", "batch"):
@@ -1023,6 +1237,7 @@ class TorchDocFarm:
         touched_objects = [set() for _ in range(self.num_docs)]
         applied_changes = [[] for _ in range(self.num_docs)]
         # fault-domain state for this call (isolation="doc")
+        exact_patches: dict[int, dict] = {}
         failures: dict[int, BaseException] = {}
         snapshots: dict[int, dict] = {}
         attempted = [d for d in range(self.num_docs) if per_doc_buffers[d]]
@@ -1042,6 +1257,7 @@ class TorchDocFarm:
                 else:
                     stale = ()
                 self._restore_doc(d, snapshots.pop(d), stale_slots=stale)
+            exact_patches.pop(d, None)
             failures[d] = exc
             per_doc_decoded[d] = []
             per_doc_rows[d] = []
@@ -1074,7 +1290,6 @@ class TorchDocFarm:
                     )
                     _M_Q_SHED.inc()
 
-        decode_failures: dict[int, BaseException] = {}
         with prof.phase("decode"):
             # batched first-touch decode: every distinct cache miss in the
             # delivery parses in ONE vector pass (tpu/decode) — the per-doc
@@ -1098,32 +1313,49 @@ class TorchDocFarm:
                 except Exception as exc:
                     if not doc_mode:
                         raise
-                    decoded = []
-                    decode_failures[d] = exc
+                    per_doc_decoded.append([])
+                    quarantine(d, exc)
+                    continue
                 per_doc_decoded.append(decoded)
-
-        # list/text changes need the sequential engine, which this package
-        # has not ported: refuse the call before any doc's state changes
-        for decoded in per_doc_decoded:
-            if decoded and self._targets_list(decoded):
-                raise NotPortedError("opset", "a change to a list/text object")
-        for d, exc in decode_failures.items():
-            quarantine(d, exc)
 
         # Docs receiving no changes this call skip prevalidation entirely:
         # their queue was validated at its original delivery and a queued
         # change can only become ready when a NEW change for the same doc
         # commits.
-        for d, decoded in enumerate(per_doc_decoded):
-            if not decoded:
-                continue
-            try:
-                self._prevalidate_limits(d, decoded)
-            except ValueError as exc:
-                if not doc_mode:
-                    _M_ABORTS.inc()
-                    raise
-                quarantine(d, exc)
+        with prof.phase("prevalidate"):
+            for d, decoded in enumerate(per_doc_decoded):
+                if not decoded:
+                    continue
+                try:
+                    self._prevalidate_limits(d, decoded)
+                except ValueError as exc:
+                    if not doc_mode:
+                        _M_ABORTS.inc()
+                        raise
+                    quarantine(d, exc)
+
+        # list/text-targeting docs route through the reference walk, whose
+        # patch is authoritative for them (byte-exact edit streams; see
+        # module docstring). It runs BEFORE the farm's own gate so error
+        # behaviour (seq reuse, missing objects) matches the sequential
+        # engine's.
+        with prof.phase("walk"):
+            for d, decoded in enumerate(per_doc_decoded):
+                if decoded and (
+                    self.exact[d] is not None or self._targets_list(decoded)
+                ):
+                    try:
+                        self._ensure_exact(d)
+                        exact_patches[d] = self.exact[d].apply_changes(
+                            [c["buffer"] for c in decoded], is_local
+                        )
+                    except Exception as exc:
+                        if not doc_mode:
+                            raise
+                        # the walk bootstrap/apply may be mid-flight;
+                        # rebuild lazily from the committed log
+                        self.exact[d] = None
+                        quarantine(d, exc)
 
         # snapshot + columnar verdicts: the whole delivery's gate decisions
         # (commit order / deferrals) come from one dep-column program per
@@ -1153,6 +1385,7 @@ class TorchDocFarm:
                         mirror_pre,
                     )
                 except Exception as exc:
+                    self.exact[d] = None
                     col_cuts.pop(d, None)
                     mirror_pre.pop(d, None)
                     quarantine(d, exc)
@@ -1207,9 +1440,13 @@ class TorchDocFarm:
                 except Exception as exc:
                     if not doc_mode:
                         raise
+                    # exact walk state (if any) committed the delivery the
+                    # farm is rolling back; rebuild it lazily
+                    self.exact[d] = None
                     quarantine(d, exc)
 
         if _METRICS.enabled:
+            _M_WALKS.inc(len(exact_patches))
             _M_APPLIED.inc(sum(len(c) for c in applied_changes))
             delivered = {
                 c["hash"] for decoded in per_doc_decoded for c in decoded
@@ -1261,11 +1498,13 @@ class TorchDocFarm:
                     if not doc_mode:
                         raise
                     # the JAX farm bisects and serves survivors through the
-                    # sequential walk; without it, roll every doc of this
-                    # call back (the engine already returned its pages) and
+                    # degraded walk; without it, roll every doc of this
+                    # call back (the engine already returned its pages;
+                    # walks that committed the delivery rebuild lazily) and
                     # refuse the call
                     for d in list(snapshots):
                         self._restore_doc(d, snapshots.pop(d))
+                        self.exact[d] = None
                     raise NotPortedError(
                         "opset", "serving documents after a failed device "
                         "dispatch"
@@ -1285,9 +1524,12 @@ class TorchDocFarm:
                 for d, arr in enumerate(per_doc_arrays):
                     if arr is not None:
                         self._merge_mirror(d, arr, pre=mirror_pre.get(d))
+                # walk-served docs take their patch from the walk; their
+                # stale spans refresh at the next whole-doc read
                 vis_docs = [
                     d for d in range(self.num_docs)
-                    if d not in failures and per_doc_arrays[d] is not None
+                    if d not in failures and d not in exact_patches
+                    and per_doc_arrays[d] is not None
                 ]
                 fast = []
                 if not self._child_value_ids:
@@ -1321,6 +1563,9 @@ class TorchDocFarm:
                 if d in attempted:
                     self.fault_counts[d] = 0  # a clean delivery ends the streak
                 outcomes.append(_APPLIED)
+                if d in exact_patches:
+                    patches.append(exact_patches[d])
+                    continue
                 if d in emit_info:
                     idx_e, emit_e = emit_info[d]
                     diffs = self._build_diffs_columns(
@@ -1362,7 +1607,10 @@ class TorchDocFarm:
     def _snapshot_doc(self, d: int) -> dict:
         """Captures doc `d`'s mutable host state before the commit phase.
         Containers the gate replaces wholesale (heads/clock/queue) are kept
-        by reference; containers it mutates in place are shallow-copied."""
+        by reference; containers it mutates in place are shallow-copied.
+        The element arrays need only their live count: rows past
+        num_elems[d] are dead (masked by the valid range) and the next
+        insert overwrites them."""
         return {
             "object_meta": dict(self.object_meta[d]),
             "clock": self.clock[d],
@@ -1383,6 +1631,10 @@ class TorchDocFarm:
             "counter_ops": set(self.counter_ops[d]),
             "inc_max": dict(self.inc_max[d]),
             "starved": set(self.starved[d]),
+            "num_elems": int(self.num_elems[d]),
+            "elem_index": dict(self.elem_index[d]),
+            "elem_ids": list(self.elem_ids[d]),
+            "elem_object": list(self.elem_object[d]),
             # paged op storage: the doc's slab pages + live row count, so
             # rollback returns any since-acquired pages to the allocator
             # instead of leaking them
@@ -1416,6 +1668,10 @@ class TorchDocFarm:
         self.counter_ops[d] = snap["counter_ops"]
         self.inc_max[d] = snap["inc_max"]
         self.starved[d] = snap["starved"]
+        self.num_elems[d] = snap["num_elems"]
+        self.elem_index[d] = snap["elem_index"]
+        self.elem_ids[d] = snap["elem_ids"]
+        self.elem_object[d] = snap["elem_object"]
         self.engine.restore_doc(d, snap["pages"], snap["page_rows"])
         # a rolled-back delivery must never be served stale visibility
         if stale_slots is None:
@@ -1538,6 +1794,13 @@ class TorchDocFarm:
                 self.slots.lookup(s): dict(v)
                 for s, v in self.children[d].items()
             },
+            "num_elems": int(self.num_elems[d]),
+            "elem_opid": self.elem_opid[d, : int(self.num_elems[d])].copy(),
+            "elem_parent": self.elem_parent[d, : int(self.num_elems[d])].copy(),
+            "elem_index": dict(self.elem_index[d]),
+            "elem_ids": list(self.elem_ids[d]),
+            "elem_object": list(self.elem_object[d]),
+            "exact": self.exact[d],
             "fault_count": self.fault_counts[d],
             "quarantine": self.quarantine.get(d),
         }
@@ -1636,6 +1899,15 @@ class TorchDocFarm:
             self.slots.intern(sk): dict(v)
             for sk, v in export["children"].items()
         }
+        ne = export["num_elems"]
+        self._grow_elems(ne)
+        self.num_elems[d] = ne
+        self.elem_opid[d, :ne] = _remap_packed(export["elem_opid"], amap)
+        self.elem_parent[d, :ne] = export["elem_parent"]
+        self.elem_index[d] = export["elem_index"]
+        self.elem_ids[d] = export["elem_ids"]
+        self.elem_object[d] = export["elem_object"]
+        self.exact[d] = export["exact"]
         self.fault_counts[d] = export["fault_count"]
         if export["quarantine"] is not None:
             self.quarantine[d] = export["quarantine"]
@@ -1672,6 +1944,11 @@ class TorchDocFarm:
         self.inc_max[d] = {}
         self.starved[d] = set()
         self.children[d] = {}
+        self.num_elems[d] = 0
+        self.elem_index[d] = {}
+        self.elem_ids[d] = []
+        self.elem_object[d] = []
+        self.exact[d] = None
         self.fault_counts[d] = 0
         self.quarantine.pop(d, None)
         self._vis_mkey[d] = np.empty(0, np.int64)
@@ -1909,6 +2186,34 @@ class TorchDocFarm:
         hi = np.searchsorted(mkey, (np.int64(slot) + 1) << _MKEY_OP_BITS)
         return int(lo), int(hi)
 
+    def _slot_rows(self, d, slot):
+        """All walkable rows of one slot in reference walk order:
+        [(packed, action, visible, total)], served from the host mirror
+        (callers refresh first). Deletion rows and multi-pred marker rows
+        are dropped as a column mask BEFORE any per-row materialisation —
+        the reference stores deletions only as succ entries, so its walk
+        never visits them. Walk order ties same-counter ops on the actor id
+        STRING via the precomputed rank table, not a per-row sort key."""
+        lo, hi = self._slot_span(d, slot)
+        if lo == hi:
+            return []
+        span = slice(lo, hi)
+        act = self._vis_action[d][span]
+        keep = act != ACTION_DEL
+        ops = self._vis_op[d][span][keep]
+        if ops.shape[0] == 0:
+            return []
+        act = act[keep]
+        vis = self._vis_visible[d][span][keep]
+        tot = self._vis_total[d][span][keep]
+        order = np.argsort(
+            lamport_keys(ops, self._actor_rank()), kind="stable"
+        )
+        return [
+            (int(o), int(a), bool(v), int(t))
+            for o, a, v, t in zip(ops[order], act[order], vis[order], tot[order])
+        ]
+
     def _visible_rows(self, d, slot):
         """[(packed_opid, value_total)] of visible set rows for one slot —
         the visible/action filters run as column masks before any rows are
@@ -2030,8 +2335,8 @@ class TorchDocFarm:
 
     def _build_diffs(self, d, cutoffs, touched_objects):
         """Patch assembly for map-family docs from the visibility mirror.
-        Deliveries that touch list/text objects never reach this path
-        (apply_changes refuses them before the gate).
+        Docs that touch list/text objects never reach this path (they are
+        served by the embedded reference walk; see apply_changes).
 
         The old per-slot inner loops are column operations here: slot spans
         come from one batched searchsorted pair (ragged_spans), walk order
@@ -2224,6 +2529,33 @@ class TorchDocFarm:
         self._link_ancestors(d, patches, touched_objects)
         return patches["_root"]
 
+    def _visible_sequence(self, d, ranks, obj):
+        """One list object's visible elements in document order:
+        [(elemId, winner_packed, total)] — device ranks (`ranks`, per
+        element index of doc `d`) give the order, the visibility mirror
+        gives each element's surviving value."""
+        n = int(self.num_elems[d])
+        if n == 0:
+            return []
+        order = np.argsort(ranks[:n], kind="stable")
+        seq = []
+        for idx in order.tolist():
+            if self.elem_object[d][idx] != obj:
+                continue
+            elem_id = self.elem_ids[d][idx]
+            slot = self.slots.intern((obj, elem_id))
+            best = None
+            for packed, action, visible, total in self._slot_rows(d, slot):
+                if not visible or action != ACTION_SET:
+                    continue
+                if packed in self.counter_ops[d] and packed in self.starved[d]:
+                    continue
+                if best is None or self._lamport(packed) > self._lamport(best[0]):
+                    best = (packed, total)
+            if best is not None:
+                seq.append((elem_id, best[0], best[1]))
+        return seq
+
     # ------------------------------------------------------------------ #
     # whole-document patch (getPatch, new.js:2052)
 
@@ -2231,11 +2563,16 @@ class TorchDocFarm:
         # whole-doc reads ride the same mirror: only this doc's stale
         # spans (if any) cross the device boundary
         self._refresh_visibility([d])
+        ranks = self._element_ranks(d) if int(self.num_elems[d]) > 0 else None
         patches = {"_root": _empty_object_patch("_root", "map")}
+        list_objects = set()
         slots_here = np.unique(self._vis_key[d]).tolist()
         for slot in slots_here:
             obj, key = self.slots.lookup(slot)
             if obj not in self.object_meta[d]:
+                continue
+            if self.object_meta[d][obj]["type"] in ("list", "text"):
+                list_objects.add(obj)
                 continue
             rows = [
                 (packed, total)
@@ -2251,6 +2588,18 @@ class TorchDocFarm:
                 props[self._opid_str(packed)] = self._value_diff(
                     d, patches, packed, total
                 )
+        # list objects materialise as a full insert script in document
+        # order (the whole-doc scan's edits, new.js:1604)
+        for obj in sorted(list_objects):
+            patch = self._ensure_patch(d, patches, obj)
+            for index, (elem_id, packed, total) in enumerate(
+                self._visible_sequence(d, ranks, obj)
+            ):
+                append_edit(patch["edits"], {
+                    "action": "insert", "index": index, "elemId": elem_id,
+                    "opId": self._opid_str(packed),
+                    "value": self._value_diff(d, patches, packed, total),
+                })
         return {
             "maxOp": self.max_op[d],
             "clock": self.clock[d],

@@ -1,0 +1,79 @@
+"""Segmented payload-plane sum of the device LEB128 scan.
+
+Hopper counterpart of the JAX package's Pallas kernel
+``tpu/pallas_kernels.py: leb128_segment_sum``, written in CUDA C++ in
+``csrc/leb128.cu`` (see the note there for the design and what bounds it).
+The wrapper checks its inputs, allocates the output and launches the
+kernel on the current stream when the tensors lie on the card; for tensors
+on the CPU it runs the plain PyTorch version beside it, which the CPU tests
+hold against the Pallas kernel in interpret mode.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import check_tensor, load, stream_ptr, tensor_ptr
+
+#: launches of the kernel on the card (the CPU path never counts)
+LAUNCHES = {"leb128_segment_sum": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def leb128_segment_sum_plain(planes, seg_ids, num_segments: int):
+    """Plain version of the kernel: planes [N, P] float32, seg_ids [N]
+    int32 -> out [num_segments, P] float32 with ``out[v, p] = sum of
+    planes[i, p] over seg_ids[i] == v``; ids outside [0, num_segments)
+    are dropped."""
+    out = torch.zeros(num_segments, planes.shape[1], dtype=torch.float32,
+                      device=planes.device)
+    keep = (seg_ids >= 0) & (seg_ids < num_segments)
+    return out.index_add_(0, seg_ids[keep].long(), planes[keep])
+
+
+def _lib():
+    lib = load("leb128")
+    if not getattr(lib, "_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.leb128_segment_sum_launch.argtypes = [
+            vp, vp, vp, ctypes.c_longlong, ci, ci, vp,
+        ]
+        lib.leb128_segment_sum_launch.restype = ci
+        lib._bound = True
+    return lib
+
+
+def leb128_segment_sum(planes, seg_ids, num_segments: int):
+    """Per-varint payload-plane sums (see ``leb128_segment_sum_plain`` for
+    the function). The planes must hold integers below 2^14 and every
+    segment's sum must stay below 2^24, so that float32 sums are exact in
+    any order. Launches ``leb128_segment_sum_kernel`` for card tensors, the
+    plain version for CPU tensors."""
+    if planes.device.type == "cpu":
+        return leb128_segment_sum_plain(planes, seg_ids, num_segments)
+    n, p = planes.shape
+    check_tensor("planes", planes, torch.float32, (n, p))
+    check_tensor("seg_ids", seg_ids, torch.int32, (n,))
+    if seg_ids.device != planes.device:
+        raise ValueError("planes and seg_ids must be on one device")
+    if num_segments < 0:
+        raise ValueError("num_segments must not be negative")
+    out = torch.empty(num_segments, p, dtype=torch.float32,
+                      device=planes.device)
+    if num_segments * p == 0:
+        return out
+    err = _lib().leb128_segment_sum_launch(
+        tensor_ptr(planes), tensor_ptr(seg_ids), tensor_ptr(out), n, p,
+        num_segments, stream_ptr(planes.device),
+    )
+    if err:
+        raise RuntimeError(
+            f"leb128_segment_sum_kernel launch failed: CUDA error {err}"
+        )
+    LAUNCHES["leb128_segment_sum"] += 1
+    return out

@@ -9,27 +9,51 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``build/kernels/`` (one ``nvcc`` per source, started together), timed;
 2. hold each kernel against its plain PyTorch version on the card,
    bit-exact, at edge shapes;
-3. the main path: a server ``TorchDocFarm`` of 1,024 map/counter documents
-   and 8 replica farms of the same documents. Each replica makes 8 changes
-   of 16 ops to every document (sets on 64 root keys; increments on the
-   counter its first change creates), then the replicas sync with the
-   server over the Bloom protocol (``SyncFarm``) until no message moves:
-   one ``generate_messages`` call over all 8,192 server channels per
-   sweep, one ``receive_messages`` call per replica. Every farm must end
+3. the main path: a server ``TorchDocFarm`` of ``--docs`` (512)
+   map/counter documents and 8 replica farms of the same documents. Each
+   replica makes 8 changes of 16 ops to every document (sets on 64 root
+   keys; increments on the counter its first change creates), then the
+   replicas sync with the server over the Bloom protocol (``SyncFarm``)
+   until no message moves: one ``generate_messages`` call over all 8 x
+   ``--docs`` server channels per sweep, one ``receive_messages`` call per
+   replica. Every farm must end
    with equal heads and equal whole-document patches, and both Bloom
    kernels must have launched. The kernels are then held against their
    plain versions again on the inputs of their largest main-path launch,
    and timed there (CUDA events);
 4. the same scenario at 16 documents, once on the card and once on the
-   CPU: every sync message and every patch must be byte-identical.
+   CPU: every sync message and every patch must be byte-identical;
+5. hold the LEB128 segmented-sum kernel against its plain version on the
+   card, bit-exact, at edge shapes, and run streams of 1- to 8-byte
+   varints (unsigned and signed) through the device scan;
+6. the repo's configuration 2 ("Automerge.Text: 2-actor concurrent
+   insert/delete, 10k ops") on ``BatchedTextEngine`` at ``--text-docs``
+   (1,024) documents: a 64-insert seed, then 100 rounds of one 50-op
+   change per actor per doc (80 % inserts, 20 % deletes, tied counters).
+   Every doc's visible length must match the traffic and 32 sampled docs
+   must equal a plain host reference;
+7. the same per-doc traffic through a server ``TorchDocFarm`` and one
+   replica farm per actor at ``--farm-text-docs`` (6) documents (one change
+   per doc per ``apply_changes`` call), then the Bloom sync until no
+   message moves. Every farm must converge, every whole-doc patch (device
+   RGA rank + mirror) must equal the farm's embedded sequential walk's,
+   and both Bloom kernels must have launched;
+8. the device LEB128 scan (kernel 3) over the varint stream of every
+   change buffer of phases 3 and 7, equal to the NumPy pass; the kernel
+   is then held against its plain version at that launch and timed;
+9. phase 7 at 2 docs x 20 changes and phase 6 at 16 docs, once on the
+   card and once on the CPU: messages, patches, ranks and texts must be
+   byte-identical.
 
-The line before the last is the kernel table (JSON); the last line is
-``{"ok": true, "device": {...}}``. Weights are the documents themselves,
-made from ``--seed``.
+Each path's kernel launch counts are set to 0 just before it runs and
+read just after. The line before the last is the kernel table (JSON); the
+last line is ``{"ok": true, "device": {...}}``. Weights are the documents
+themselves, made from ``--seed``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -41,9 +65,25 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 
+# phase 3 per document: replicas, changes per replica, ops per change
+MAP_REPLICAS, MAP_CHANGES, MAP_OPS = 8, 8, 16
+# configuration 2 per document: changes per actor, ops per change (2 actors)
+TEXT_CHANGES, TEXT_OPS = 100, 50
+
 
 def log(*args):
     print(*args, flush=True)
+
+
+def decode_cache_env(docs, replicas=MAP_REPLICAS, changes=MAP_CHANGES):
+    """The decode-LRU settings (read by columnar.py at import) sized to
+    phase 3's working set. They are deployment settings: every distinct
+    change is re-read by every farm and by thousands of channels per
+    sweep, and the defaults (8,192 changes, 16,384 metas) hold an eighth
+    of the 65,536 changes of 1,024 docs, which makes the caches thrash."""
+    cap = str(2 * docs * replicas * changes)
+    return {"AM_DECODE_CACHE_CHANGES": cap, "AM_DECODE_CACHE_METAS": cap,
+            "AM_DECODE_CACHE_BYTES": str(1 << 30)}
 
 
 # ---------------------------------------------------------------------- #
@@ -133,58 +173,72 @@ def run_scenario(device, docs, replicas, changes, ops, seed, record=None,
         stats["edit_s"] = time.perf_counter() - t0
         rows0 = sum(int(f.engine.lengths.sum()) for f in [server, *farms])
 
-        s_states = [[SyncFarm.init_state() for _ in range(docs)]
-                    for _ in range(replicas)]
-        r_states = [[SyncFarm.init_state() for _ in range(docs)]
-                    for _ in range(replicas)]
         t_sync = time.perf_counter()
-        for _sweep in range(32):
-            t_sweep = time.perf_counter()
-            moved = 0
-            # replicas -> server: one receive call per replica (distinct docs)
-            for r in range(replicas):
-                out = rsyncs[r].generate_messages(
-                    [(d, r_states[r][d]) for d in range(docs)])
-                batch = []
-                for d, (state, msg) in enumerate(out):
-                    r_states[r][d] = state
-                    rec(msg)
-                    if msg is not None:
-                        batch.append((d, s_states[r][d], msg))
-                moved += len(batch)
-                if batch:
-                    for (d, _, _), (state, patch) in zip(
-                            batch, ssync.receive_messages(batch)):
-                        s_states[r][d] = state
-                        rec(canon(patch) if patch is not None else None)
-            # server -> replicas: every channel in one generate call
-            out = ssync.generate_messages(
-                [(d, s_states[r][d]) for r in range(replicas)
-                 for d in range(docs)])
-            for r in range(replicas):
-                batch = []
-                for d in range(docs):
-                    state, msg = out[r * docs + d]
-                    s_states[r][d] = state
-                    rec(msg)
-                    if msg is not None:
-                        batch.append((d, r_states[r][d], msg))
-                moved += len(batch)
-                if batch:
-                    for (d, _, _), (state, patch) in zip(
-                            batch, rsyncs[r].receive_messages(batch)):
-                        r_states[r][d] = state
-                        rec(canon(patch) if patch is not None else None)
-            _sync(device)
-            stats["sweeps"].append((time.perf_counter() - t_sweep, moved))
-            if moved == 0:
-                break
-        else:
-            raise RuntimeError("sync did not quiesce in 32 sweeps")
+        stats["sweeps"] = sync_until_quiet(device, ssync, rsyncs, docs, rec)
         stats["sync_s"] = time.perf_counter() - t_sync
     rows1 = sum(int(f.engine.lengths.sum()) for f in [server, *farms])
     stats["merged_rows"] = rows1 - rows0
+    stats["buffers"] = [b for per_change in edits for bufs in per_change
+                        for b in bufs]
     return [server, *farms], stats
+
+
+def sync_until_quiet(device, ssync, rsyncs, docs, rec):
+    """The replicas sync with the server over the Bloom protocol until no
+    message moves: per sweep, each replica generates for its channels and
+    the server receives them (one call per replica), then the server
+    generates for every channel in one call and each replica receives.
+    Returns [(sweep seconds, messages moved)]."""
+    from automerge_tpu_torch import SyncFarm
+
+    replicas = len(rsyncs)
+    s_states = [[SyncFarm.init_state() for _ in range(docs)]
+                for _ in range(replicas)]
+    r_states = [[SyncFarm.init_state() for _ in range(docs)]
+                for _ in range(replicas)]
+    sweeps = []
+    for _sweep in range(32):
+        t_sweep = time.perf_counter()
+        moved = 0
+        # replicas -> server: one receive call per replica (distinct docs)
+        for r in range(replicas):
+            out = rsyncs[r].generate_messages(
+                [(d, r_states[r][d]) for d in range(docs)])
+            batch = []
+            for d, (state, msg) in enumerate(out):
+                r_states[r][d] = state
+                rec(msg)
+                if msg is not None:
+                    batch.append((d, s_states[r][d], msg))
+            moved += len(batch)
+            if batch:
+                for (d, _, _), (state, patch) in zip(
+                        batch, ssync.receive_messages(batch)):
+                    s_states[r][d] = state
+                    rec(canon(patch) if patch is not None else None)
+        # server -> replicas: every channel in one generate call
+        out = ssync.generate_messages(
+            [(d, s_states[r][d]) for r in range(replicas)
+             for d in range(docs)])
+        for r in range(replicas):
+            batch = []
+            for d in range(docs):
+                state, msg = out[r * docs + d]
+                s_states[r][d] = state
+                rec(msg)
+                if msg is not None:
+                    batch.append((d, r_states[r][d], msg))
+            moved += len(batch)
+            if batch:
+                for (d, _, _), (state, patch) in zip(
+                        batch, rsyncs[r].receive_messages(batch)):
+                    r_states[r][d] = state
+                    rec(canon(patch) if patch is not None else None)
+        _sync(device)
+        sweeps.append((time.perf_counter() - t_sweep, moved))
+        if moved == 0:
+            return sweeps
+    raise RuntimeError("sync did not quiesce in 32 sweeps")
 
 
 def _sync(device):
@@ -208,6 +262,309 @@ def check_converged(farms, docs):
                 raise RuntimeError(f"doc {d}: patches differ across farms")
         patches.append(want)
     return patches
+
+
+# ---------------------------------------------------------------------- #
+# list/text documents: the repo's configuration 2 ("Automerge.Text:
+# 2-actor concurrent insert/delete, 10k ops")
+
+ACTOR_A = "0a" * 16  # the seed author
+ACTOR_B = "0b" * 16
+TEXT_OBJ = f"1@{ACTOR_A}"  # the seed change's makeText
+SEED_INSERTS = 64
+LETTERS = [chr(ord("a") + i) for i in range(26)]
+
+
+class TextTraffic:
+    """Configuration 2 traffic for `docs` text documents. A seed change by
+    actor A (makeText, then SEED_INSERTS chained inserts) that both actors
+    see; then per round one change of `ops` ops from each actor, authored
+    concurrently: each actor references only the seed and its own ops.
+    80 % of ops insert (10 % of those at _head, the rest after a random
+    element live in the author's view), 20 % delete a live element of the
+    author's view, so both actors may delete one seed element. Both
+    actors' counters start right after the seed, so they tie and order
+    breaks on the actor string. Ops are backend-form dicts."""
+
+    def __init__(self, docs, ops, seed):
+        self.rng = np.random.default_rng(seed)
+        self.docs, self.ops = docs, ops
+        seed_elems = [f"{2 + i}@{ACTOR_A}" for i in range(SEED_INSERTS)]
+        self.live = {a: [list(seed_elems) for _ in range(docs)]
+                     for a in (ACTOR_A, ACTOR_B)}
+        self.seed_set = set(seed_elems)
+        self.seed_dels = {a: [set() for _ in range(docs)]
+                          for a in (ACTOR_A, ACTOR_B)}
+        self.inserts = np.full(docs, SEED_INSERTS, np.int64)
+        self.deletes = np.zeros(docs, np.int64)
+        self.ctr = SEED_INSERTS + 2  # the next change's startOp
+
+    @staticmethod
+    def seed_ops():
+        """[(op, counter)] of the seed change: makeText, then the inserts,
+        each after the previous one."""
+        out = [({"action": "makeText", "obj": "_root", "key": "text",
+                 "pred": []}, 1)]
+        ref = "_head"
+        for i in range(SEED_INSERTS):
+            out.append(({"action": "set", "obj": TEXT_OBJ, "elemId": ref,
+                         "insert": True, "value": LETTERS[i % 26],
+                         "pred": []}, 2 + i))
+            ref = f"{2 + i}@{ACTOR_A}"
+        return out
+
+    def next_round(self):
+        """(startOp, per doc [A's ops, B's ops]) of the next round."""
+        rng, n, start = self.rng, self.ops, self.ctr
+        shape = (2, self.docs, n)
+        ins = (rng.random(shape) < 0.8).tolist()
+        head = (rng.random(shape) < 0.1).tolist()
+        pick = rng.random(shape).tolist()
+        val = rng.integers(0, 26, shape).tolist()
+        seed_set = self.seed_set
+        ids = [[f"{start + i}@{a}" for i in range(n)]
+               for a in (ACTOR_A, ACTOR_B)]
+        out = []
+        for d in range(self.docs):
+            pair = []
+            n_ins = 0
+            for k, actor in enumerate((ACTOR_A, ACTOR_B)):
+                live = self.live[actor][d]
+                ins_k, head_k, pick_k, val_k = (
+                    ins[k][d], head[k][d], pick[k][d], val[k][d])
+                own = ids[k]
+                ops = []
+                for i in range(n):
+                    if ins_k[i] or not live:
+                        ref = ("_head" if head_k[i] or not live
+                               else live[int(pick_k[i] * len(live))])
+                        ops.append({"action": "set", "obj": TEXT_OBJ,
+                                    "elemId": ref, "insert": True,
+                                    "value": LETTERS[val_k[i]], "pred": []})
+                        live.append(own[i])
+                        n_ins += 1
+                    else:
+                        j = int(pick_k[i] * len(live))
+                        elem = live[j]
+                        live[j] = live[-1]
+                        live.pop()
+                        ops.append({"action": "del", "obj": TEXT_OBJ,
+                                    "elemId": elem, "pred": [elem]})
+                        if elem in seed_set:
+                            self.seed_dels[actor][d].add(elem)
+                pair.append(ops)
+            self.inserts[d] += n_ins
+            self.deletes[d] += 2 * n - n_ins
+            out.append(pair)
+        self.ctr += n
+        return start, out
+
+    def text_lengths(self):
+        """Per doc: inserts minus distinct deleted elements (the only
+        duplicate deletes are of seed elements, by both actors)."""
+        dup = np.array([
+            len(self.seed_dels[ACTOR_A][d] & self.seed_dels[ACTOR_B][d])
+            for d in range(self.docs)
+        ], np.int64)
+        return self.inserts - (self.deletes - dup)
+
+
+def reference_text(ops):
+    """Plain host reference of one text document: the sequential RGA scan
+    (HostDocOrder) over [(op, counter, actor)] in causal order, and
+    last-writer visibility: an element's only writer is its insert, so it
+    is visible iff no delete names it."""
+    from automerge_tpu_torch.tpu.text_engine import HostDocOrder
+
+    order = HostDocOrder()
+    value, deleted = {}, set()
+    for op, ctr, actor in ops:
+        if op.get("insert"):
+            elem = f"{ctr}@{actor}"
+            order.insert(elem, op["elemId"])
+            value[elem] = op["value"]
+        else:
+            deleted.add(op["elemId"])
+    return [value[e] for e in order.elems if e not in deleted]
+
+
+def run_text_engine(device, docs, changes, ops, seed, sample=()):
+    """Configuration 2 on ``BatchedTextEngine``: `changes` apply_batch
+    rounds, round r carrying change r of both actors for every doc (the
+    seed change rides round 0). Returns (engine, traffic, {sampled doc:
+    its op stream}, seconds spent applying)."""
+    from automerge_tpu_torch.tpu.text_engine import BatchedTextEngine
+
+    eng = BatchedTextEngine(docs, device=device)
+    eng._actor(ACTOR_B)  # intern B before A: intern order != rank order
+    traffic = TextTraffic(docs, ops, seed)
+    seed_ops = [(op, ctr, ACTOR_A) for op, ctr in TextTraffic.seed_ops()[1:]]
+    kept = {d: [] for d in sample}
+    apply_s = 0.0
+    for r in range(changes):
+        start, pairs = traffic.next_round()
+        per_doc = []
+        for d, (ops_a, ops_b) in enumerate(pairs):
+            row = list(seed_ops) if r == 0 else []
+            row += [(op, start + i, ACTOR_A) for i, op in enumerate(ops_a)]
+            row += [(op, start + i, ACTOR_B) for i, op in enumerate(ops_b)]
+            per_doc.append(row)
+            if d in kept:
+                kept[d].extend(row)
+        t0 = time.perf_counter()
+        eng.apply_batch(per_doc)
+        apply_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _sync(device)
+    return eng, traffic, kept, apply_s + time.perf_counter() - t0
+
+
+def text_change_buffers(traffic, changes):
+    """Encodes the text traffic as change buffers: the seed change, then
+    per round, per actor, one change per doc (each actor's changes chain
+    on its previous one). Returns (seed buffer, [round][actor][doc])."""
+    from automerge_tpu_torch.columnar import decode_change_columns, encode_change
+
+    seed_buf = encode_change({
+        "actor": ACTOR_A, "seq": 1, "startOp": 1, "time": 0, "deps": [],
+        "ops": [op for op, _ in TextTraffic.seed_ops()],
+    })
+    seed_hash = decode_change_columns(seed_buf)["hash"]
+    heads = {a: [[seed_hash] for _ in range(traffic.docs)]
+             for a in (ACTOR_A, ACTOR_B)}
+    first_seq = {ACTOR_A: 2, ACTOR_B: 1}
+    rounds = []
+    for r in range(changes):
+        start, pairs = traffic.next_round()
+        per_actor = []
+        for k, actor in enumerate((ACTOR_A, ACTOR_B)):
+            bufs = []
+            for d in range(traffic.docs):
+                buf = encode_change({
+                    "actor": actor, "seq": first_seq[actor] + r,
+                    "startOp": start, "time": 0, "deps": heads[actor][d],
+                    "ops": pairs[d][k],
+                })
+                heads[actor][d] = [decode_change_columns(buf)["hash"]]
+                bufs.append(buf)
+            per_actor.append(bufs)
+        rounds.append(per_actor)
+    return seed_buf, rounds
+
+
+def run_text_farm(device, docs, changes, ops, seed, record=None, prof=None):
+    """List/text documents through the farm and the Bloom sync: a server
+    ``TorchDocFarm`` and one replica farm per actor. Each replica applies
+    the seed change and then its actor's changes, one change per doc per
+    ``apply_changes`` call; then both sync with the server until no
+    message moves. Returns (farms, stats)."""
+    from automerge_tpu_torch import SyncFarm, TorchDocFarm
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+
+    prof = prof or PhaseProfile(enabled=False)
+    traffic = TextTraffic(docs, ops, seed)
+    seed_buf, rounds = text_change_buffers(traffic, changes)
+    capacity = SEED_INSERTS + 1 + 2 * changes * ops
+    server, rep_a, rep_b = (
+        TorchDocFarm(docs, capacity=capacity, device=device) for _ in range(3)
+    )
+
+    def rec(x):
+        if record is not None:
+            record.append(x)
+
+    def apply(farm, bufs):
+        result = farm.apply_changes([[b] for b in bufs])
+        if result.quarantined:
+            raise RuntimeError(f"text edit quarantined: {result.quarantined}")
+        rec([canon(p) for p in result])
+
+    stats = {"traffic": traffic,
+             "buffers": [seed_buf] + [b for per_actor in rounds
+                                      for bufs in per_actor for b in bufs]}
+    with use_profile(prof):
+        t0 = time.perf_counter()
+        for farm in (rep_a, rep_b):
+            apply(farm, [seed_buf] * docs)
+        for per_actor in rounds:
+            apply(rep_a, per_actor[0])
+            apply(rep_b, per_actor[1])
+        _sync(device)
+        stats["edit_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats["sweeps"] = sync_until_quiet(
+            device, SyncFarm(server), [SyncFarm(rep_a), SyncFarm(rep_b)],
+            docs, rec,
+        )
+        stats["sync_s"] = time.perf_counter() - t0
+    return [server, rep_a, rep_b], stats
+
+
+def _edit_elems(patch):
+    """elemIds of a whole-doc patch's text object, in document order (a
+    multi-insert edit covers consecutive counters of one actor)."""
+    (obj,) = patch["diffs"]["props"]["text"].values()
+    out = []
+    for edit in obj["edits"]:
+        if edit["action"] == "multi-insert":
+            ctr, actor = edit["elemId"].split("@", 1)
+            out.extend(f"{int(ctr) + i}@{actor}"
+                       for i in range(len(edit["values"])))
+        else:
+            out.append(edit["elemId"])
+    return out
+
+
+def check_text_converged(farms, docs, lengths):
+    """Every doc on every farm: equal heads; the whole-doc patch (device
+    RGA rank + mirror) equals the farm's embedded sequential walk's, the
+    document orders compared element by element; equal patches across
+    farms; and the visible length the traffic predicts. Returns the
+    server's patches."""
+    patches = []
+    for d in range(docs):
+        heads = farms[0].get_heads(d)
+        want = None
+        for f in farms:
+            if f.get_heads(d) != heads:
+                raise RuntimeError(f"text doc {d}: heads differ across farms")
+            got = f.get_patch(d)
+            walk = f.exact[d].get_patch()
+            if _edit_elems(got) != _edit_elems(walk):
+                raise RuntimeError(f"text doc {d}: device order differs from "
+                                   "the sequential walk's")
+            if canon(got) != canon(walk):
+                raise RuntimeError(f"text doc {d}: get_patch differs from the "
+                                   "sequential walk's")
+            if want is None:
+                want = canon(got)
+                n = len(_edit_elems(got))
+                if n != int(lengths[d]):
+                    raise RuntimeError(f"text doc {d}: {n} visible elements, "
+                                       f"want {int(lengths[d])}")
+            elif canon(got) != want:
+                raise RuntimeError(f"text doc {d}: patches differ across "
+                                   "farms")
+        patches.append(want)
+    return patches
+
+
+def varint_stream(buffers):
+    """The varint byte stream ``tpu/decode._decode_batch`` scans in one
+    pass: every varint column (RLE, delta, boolean, group, actor, length)
+    of every change in `buffers`, concatenated in order."""
+    from automerge_tpu_torch.columnar import decode_change_columns
+    from automerge_tpu_torch.tpu.decode import _collect_columns
+
+    segs = []
+    for buf in buffers:
+        meta = decode_change_columns(buf)
+        grouped = _collect_columns(
+            [(c["columnId"], c["buffer"]) for c in meta["columns"]]
+        )
+        if grouped is not None:
+            segs.extend(b for _, _, b in grouped[0])
+    return np.frombuffer(b"".join(segs), np.uint8)
 
 
 # ---------------------------------------------------------------------- #
@@ -305,6 +662,99 @@ def query_bound(words, counts, query):
         nbytes, ops
 
 
+def check_segsum(planes, seg_ids, num_segments):
+    """The LEB128 kernel against its plain version on the same card
+    tensors: bit-exact, or the run fails. Returns the max abs error."""
+    import torch
+
+    from automerge_tpu_torch.tpu import leb_kernels as lk
+
+    got = lk.leb128_segment_sum(planes, seg_ids, num_segments)
+    want = lk.leb128_segment_sum_plain(planes, seg_ids, num_segments)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise RuntimeError(
+            f"leb128_segment_sum disagrees with its plain version "
+            f"(N={planes.shape[0]}, V={num_segments})"
+        )
+    return float((got - want).abs().max().item()) if got.numel() else 0.0
+
+
+def leb_edge_checks(device):
+    """Bit-exact kernel-vs-plain checks of the LEB128 segmented sum: N = 1,
+    N and V not multiples of 8, -1 and >= V ids, unsorted ids, and
+    N > 512 with V > 128 (past the TPU kernel's tiles); then a stream of
+    1- to 8-byte varints, unsigned and signed, through the device scan
+    against the NumPy pass."""
+    import torch
+
+    from automerge_tpu_torch.codecs import Encoder
+    from automerge_tpu_torch.tpu.decode import leb128_scan, leb128_scan_device
+
+    rng = np.random.default_rng(11)
+    cases = [(1, 1, "sorted"), (13, 5, "sorted"), (37, 11, "out_of_range"),
+             (29, 7, "unsorted"), (1300, 300, "unsorted"),
+             (70_001, 9_999, "out_of_range")]
+    for n, v, ids in cases:
+        planes = rng.integers(0, 1 << 14, (n, 4)).astype(np.float32)
+        seg = np.sort(rng.integers(0, v, n)).astype(np.int32)
+        if ids == "unsorted":
+            rng.shuffle(seg)
+        elif ids == "out_of_range":
+            bad = rng.random(n) < 0.3
+            seg[bad] = rng.choice([-1, v, v + 3, 10 * v], int(bad.sum()))
+        check_segsum(torch.from_numpy(planes).to(device),
+                     torch.from_numpy(seg).to(device), v)
+        log(f"  edge ok: leb128_segment_sum N={n} V={v} ids={ids}")
+    for signed in (False, True):
+        enc = Encoder()
+        for k in range(5000):
+            bits = int(rng.integers(0, 53))
+            val = int(rng.integers(0, 1 << bits)) if bits else 0
+            if signed:
+                enc.append_int53(-val if k % 2 else val)
+            else:
+                enc.append_uint53(val)
+        data = np.frombuffer(enc.buffer, np.uint8)
+        want = leb128_scan(data)
+        got = leb128_scan_device(torch.from_numpy(data.copy()).to(device))
+        lengths = set(got[1].tolist())
+        if any(not np.array_equal(g, w) for g, w in zip(got, want)) or \
+                not {1, 8} <= lengths:
+            raise RuntimeError(f"device scan differs from the NumPy pass "
+                               f"(signed={signed})")
+        log(f"  edge ok: leb128_scan_device, {len(want[0])} varints of "
+            f"{min(lengths)}-{max(lengths)} bytes, signed={signed}")
+
+
+def segsum_bound(planes, num_segments):
+    n, p = planes.shape
+    nbytes = n * p * 4 + n * 4 + num_segments * p * 4
+    ops = n * p  # one add per input cell
+    return max(nbytes / HBM_BYTES_PER_S, ops / NON_TENSOR_OPS_PER_S) * 1e3, \
+        nbytes, ops
+
+
+def check_text_samples(texts, kept):
+    """visible_texts of the sampled docs against the plain host reference,
+    computed in worker processes (the sequential scan is O(length) per
+    insert)."""
+    import concurrent.futures
+    import multiprocessing
+
+    docs = sorted(kept)
+    workers = max(1, min(8, os.cpu_count() or 1, len(docs)))
+    with concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        refs = list(pool.map(reference_text, [kept[d] for d in docs]))
+    for d, ref in zip(docs, refs):
+        if texts[d] != ref:
+            raise RuntimeError(f"text doc {d}: visible_texts differs from the "
+                               "host reference")
+    return len(docs)
+
+
 class LargestLaunch:
     """Wraps a kernel entry of sync_batch to keep a copy of the inputs of
     its largest call (by element count) during the main path."""
@@ -325,21 +775,18 @@ class LargestLaunch:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--docs", type=int, default=1024)
-    parser.add_argument("--replicas", type=int, default=8)
-    parser.add_argument("--changes", type=int, default=8)
-    parser.add_argument("--ops", type=int, default=16)
+    parser.add_argument("--docs", type=int, default=512)
+    parser.add_argument("--replicas", type=int, default=MAP_REPLICAS)
+    parser.add_argument("--changes", type=int, default=MAP_CHANGES)
+    parser.add_argument("--ops", type=int, default=MAP_OPS)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--text-docs", type=int, default=1024)
+    parser.add_argument("--farm-text-docs", type=int, default=6)
     args = parser.parse_args(argv)
 
-    # the decode LRUs (columnar.py) are deployment settings, sized here to
-    # the run's working set: every distinct change is re-read by 9 farms
-    # and thousands of channels per sweep, and the defaults (8,192 changes,
-    # 16,384 metas) hold an eighth of the 65,536 changes of the full size
-    cap = str(2 * args.docs * args.replicas * args.changes)
-    os.environ.setdefault("AM_DECODE_CACHE_CHANGES", cap)
-    os.environ.setdefault("AM_DECODE_CACHE_METAS", cap)
-    os.environ.setdefault("AM_DECODE_CACHE_BYTES", str(1 << 30))
+    for name, value in decode_cache_env(args.docs, args.replicas,
+                                        args.changes).items():
+        os.environ.setdefault(name, value)
 
     import torch
 
@@ -468,6 +915,169 @@ def main(argv=None) -> int:
         raise RuntimeError(f"card and CPU runs differ (first at {first})")
     log(f"phase 4 card vs CPU at 16 docs: {len(on_card)} messages and "
         f"patches identical ({time.perf_counter() - t0:.2f} s)")
+
+    del farms_c, farms_h
+
+    # 5. LEB128 kernel edge shapes and the device scan's edge streams
+    t0 = time.perf_counter()
+    leb_edge_checks(device)
+    log(f"phase 5 LEB128 checks at edge shapes: ok "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # 6. configuration 2 on BatchedTextEngine at full width. The engine
+    # and the traffic keep ~10 M small acyclic host objects alive (elemId
+    # tables, op dicts); full passes of the cyclic collector over them
+    # would dominate the host clock, so it is paused for the phase (a
+    # deployment setting, like the decode LRU sizes above)
+    t0 = time.perf_counter()
+    gc.disable()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(args.seed)
+    sample = tuple(int(d) for d in rng.choice(
+        args.text_docs, min(32, args.text_docs), replace=False))
+    eng, traffic, kept, apply_s = run_text_engine(
+        device, args.text_docs, TEXT_CHANGES, TEXT_OPS, args.seed,
+        sample)
+    rows = int(eng.engine.lengths.sum())
+    t1 = time.perf_counter()
+    ranks = eng.document_ranks()
+    ranks_s = time.perf_counter() - t1
+    dev_in = (
+        torch.from_numpy(eng.elem_parent).to(device),
+        torch.from_numpy(eng.elem_opid).to(device),
+        torch.arange(eng.elem_capacity, device=device)[None, :]
+        < torch.from_numpy(eng.num_elems).to(device)[:, None],
+        torch.from_numpy(eng._actor_rank()).to(device),
+    )
+    from automerge_tpu_torch.tpu.rga import batched_rga_rank
+    rank_ms = _time_cuda(lambda: batched_rga_rank(*dev_in), iters=5)
+    del dev_in
+    t1 = time.perf_counter()
+    texts = eng.visible_texts()
+    texts_s = time.perf_counter() - t1
+    gc.enable()
+    peak = torch.cuda.max_memory_allocated()
+    lengths = traffic.text_lengths()
+    got_len = np.array([len(t) for t in texts], np.int64)
+    if not np.array_equal(got_len, lengths):
+        bad = int(np.nonzero(got_len != lengths)[0][0])
+        raise RuntimeError(f"text doc {bad}: {got_len[bad]} visible elements, "
+                           f"want {lengths[bad]}")
+    t1 = time.perf_counter()
+    n_ref = check_text_samples(texts, kept)
+    ref_s = time.perf_counter() - t1
+    log(f"phase 6 configuration 2 on BatchedTextEngine: {args.text_docs} docs "
+        f"x 2 actors x {TEXT_CHANGES} changes x {TEXT_OPS} ops "
+        f"(+{SEED_INSERTS}-insert seed), card {card}")
+    log(f"  rows {rows} ({rows / args.text_docs:.0f} per doc), element slots "
+        f"{eng.elem_capacity} per doc; apply {apply_s:.3f} s in "
+        f"{TEXT_CHANGES} rounds; document_ranks {ranks_s * 1e3:.1f} ms "
+        f"(host clock, with copies), rank program {rank_ms:.3f} ms (CUDA "
+        f"events); visible_texts {texts_s:.3f} s; peak device memory "
+        f"{peak / 2**20:.0f} MiB")
+    log(f"  visible lengths match the traffic for every doc; {n_ref} sampled "
+        f"docs equal the host reference ({ref_s:.1f} s); whole phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    del eng, kept, texts, ranks
+
+    # 7. list/text documents through the farm and the Bloom sync
+    t0 = time.perf_counter()
+    prof7 = PhaseProfile()
+    bk.reset_launch_counts()
+    tfarms, tstats = run_text_farm(device, args.farm_text_docs,
+                                   TEXT_CHANGES, TEXT_OPS,
+                                   args.seed, prof=prof7)
+    launches7 = dict(bk.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    check_text_converged(tfarms, args.farm_text_docs,
+                         tstats["traffic"].text_lengths())
+    check_s = time.perf_counter() - t1
+    for name, n in launches7.items():
+        if n <= 0:
+            raise RuntimeError(f"the text sync never launched {name}")
+    sweeps = tstats["sweeps"]
+    log(f"phase 7 list/text farms + Bloom sync: {args.farm_text_docs} docs x "
+        f"(server + 2 replicas), {TEXT_CHANGES} changes x "
+        f"{TEXT_OPS} ops per actor, card {card}")
+    log(f"  edits {tstats['edit_s']:.3f} s; sync {tstats['sync_s']:.3f} s in "
+        f"{len(sweeps)} sweeps; check (device order = walk order, equal "
+        f"patches) {check_s:.3f} s; whole phase "
+        f"{time.perf_counter() - t0:.3f} s (run {run_s:.3f} s)")
+    for i, (dt, moved) in enumerate(sweeps):
+        log(f"  sweep {i}: {dt * 1e3:.1f} ms, {moved} messages")
+    log(f"  server rows {int(tfarms[0].engine.lengths.sum())}; kernel "
+        f"launches: {launches7}")
+    log("  phase table (text farms, host clock):")
+    for line in prof7.table().splitlines():
+        log("    " + line)
+    del tfarms
+
+    # 8. the device LEB128 scan over the run's change buffers (kernel 3)
+    from automerge_tpu_torch.tpu import leb_kernels as lk
+    from automerge_tpu_torch.tpu.decode import leb128_scan, leb128_scan_device
+
+    t0 = time.perf_counter()
+    buffers = stats["buffers"] + tstats["buffers"]
+    data = varint_stream(buffers)
+    want = leb128_scan(data)
+    build_s = time.perf_counter() - t0
+    rec_seg = LargestLaunch(lk.leb128_segment_sum)
+    lk.leb128_segment_sum = rec_seg
+    lk.reset_launch_counts()
+    t1 = time.perf_counter()
+    got = leb128_scan_device(torch.from_numpy(data.copy()).to(device))
+    _sync(device)
+    scan_s = time.perf_counter() - t1
+    launches8 = dict(lk.LAUNCHES)
+    lk.leb128_segment_sum = rec_seg.fn
+    if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError("device LEB128 scan differs from the NumPy pass")
+    if launches8["leb128_segment_sum"] <= 0:
+        raise RuntimeError("the device scan never launched leb128_segment_sum")
+    planes, seg_ids, nvar = rec_seg.args
+    seg_err = check_segsum(planes, seg_ids, nvar)
+    s_bound, s_bytes, _ = segsum_bound(planes, nvar)
+    log(f"phase 8 device LEB128 scan: {len(buffers)} change buffers, "
+        f"{data.shape[0]} varint bytes, {nvar} varints; stream built in "
+        f"{build_s:.3f} s; scan {scan_s * 1e3:.1f} ms (host clock, upload "
+        f"to readback); equal to the NumPy pass; launches {launches8}")
+    table["kernels"].append(
+        {"name": "leb128_segment_sum", "route": "cuda",
+         "source": "automerge_tpu_torch/csrc/leb128.cu",
+         "replaces": "automerge_tpu/tpu/pallas_kernels.py:222",
+         "launches": launches8["leb128_segment_sum"],
+         "max_abs_err": seg_err,
+         "ms": _time_cuda(lambda: lk.leb128_segment_sum(planes, seg_ids,
+                                                        nvar)),
+         "plain_ms": _time_cuda(
+             lambda: lk.leb128_segment_sum_plain(planes, seg_ids, nvar),
+             iters=10),
+         "bound_ms": s_bound, "bound_by": "bytes",
+         "library_ms": _time_cuda(
+             lambda: torch.zeros(nvar, 4, device=device).index_add_(
+                 0, seg_ids, planes)),
+         "shape": {"N": planes.shape[0], "P": planes.shape[1], "V": nvar,
+                   "bytes": s_bytes}})
+
+    # 9. card vs CPU: the text farms at 2 docs and the text engine at 16
+    t0 = time.perf_counter()
+    on_card, on_cpu = [], []
+    for dev, rec in (("cuda", on_card), ("cpu", on_cpu)):
+        tf, ts = run_text_farm(dev, 2, 20, TEXT_OPS, args.seed,
+                               record=rec)
+        rec.extend(check_text_converged(tf, 2, ts["traffic"].text_lengths()))
+        eng, *_ = run_text_engine(dev, 16, TEXT_CHANGES, TEXT_OPS,
+                                  args.seed)
+        rec.append(eng.document_ranks().tobytes())
+        rec.append(canon(eng.visible_texts()))
+    if on_card != on_cpu:
+        first = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
+                     if a != b) if len(on_card) == len(on_cpu) else "length"
+        raise RuntimeError(f"text card and CPU runs differ (first at {first})")
+    log(f"phase 9 card vs CPU (text farms at 2 docs x 20 changes, text engine "
+        f"at 16 docs): {len(on_card)} messages, patches, ranks and texts "
+        f"identical ({time.perf_counter() - t0:.2f} s)")
 
     log(card)
     log(json.dumps(table))

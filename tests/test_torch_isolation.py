@@ -1,6 +1,7 @@
-"""The port stands alone: importing automerge_tpu_torch (its farm and its
-SyncFarm included) loads neither JAX nor anything of the JAX package, and
-its entry points refuse to fall back to the CPU when no card is present."""
+"""The port stands alone: importing automerge_tpu_torch (its farm, its
+SyncFarm, its sequential engine, text engine and kernels included) or
+chip_smoke.py loads neither JAX nor anything of the JAX package, and its
+entry points refuse to fall back to the CPU when no card is present."""
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +16,12 @@ import sys
 import automerge_tpu_torch
 import automerge_tpu_torch.carry
 import automerge_tpu_torch.kernels
+import automerge_tpu_torch.opset
+import automerge_tpu_torch.tpu.decode
+import automerge_tpu_torch.tpu.leb_kernels
+import automerge_tpu_torch.tpu.rga
+import automerge_tpu_torch.tpu.text_engine
+import chip_smoke
 from automerge_tpu_torch.tpu.farm import TorchDocFarm
 from automerge_tpu_torch.tpu.sync_farm import SyncFarm
 leaked = sorted(
@@ -43,3 +50,13 @@ def test_farm_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchDocFarm(1, capacity=8)
+
+
+def test_text_engine_defaults_to_the_card():
+    from automerge_tpu_torch.tpu.text_engine import BatchedTextEngine
+
+    if torch.cuda.is_available():
+        assert BatchedTextEngine(1, capacity=8).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BatchedTextEngine(1, capacity=8)

@@ -1,19 +1,21 @@
 """The port's farm + SyncFarm against the JAX package's TpuDocFarm + SyncFarm
 on the same seeded edits, on the CPU: every sync message must be
 byte-identical and every patch canonical-JSON-identical, sweep by sweep.
-Also: documents exported by a JAX farm carry across, and the parts this
-slice does not port raise their typed error before anything commits."""
+Also: documents exported by a JAX farm carry across, list/text deliveries
+match the JAX farm in both isolation modes, and the parts the port does not
+have yet raise their typed error before anything commits."""
 import json
 import random
 
 import pytest
 
 from automerge_tpu.columnar import encode_change
+from automerge_tpu.testing import faults
 from automerge_tpu.tpu.farm import TpuDocFarm
 from automerge_tpu.tpu.sync_farm import SyncFarm as JaxSyncFarm
 from automerge_tpu_torch import SyncFarm, TorchDocFarm
 from automerge_tpu_torch.carry import doc_from_jax_export
-from automerge_tpu_torch.errors import NotPortedError
+from automerge_tpu_torch.errors import NotPortedError, PackingLimitError
 
 
 def canon(x):
@@ -168,26 +170,51 @@ def test_jax_exports_carry_across():
 
 
 def test_list_changes_raise_before_anything_commits():
-    farm = TorchDocFarm(2, capacity=32, device="cpu")
+    """List/text deliveries apply now (embedded walk + device rank) and give
+    the JAX farm's patches, in both isolation modes. What still raises
+    before anything commits is a batch-mode call that fails prevalidation:
+    no doc's state moves, the list doc's walk included."""
     ok = make_change("aaaaaaaa", 1, 1, [], [
         {"action": "set", "obj": "_root", "key": "x", "datatype": "uint",
          "value": 1, "pred": []}])
-    farm.apply_changes([[ok], []])
-    heads = farm.get_heads(0)
-    lst = make_change("aaaaaaaa", 2, 2, heads, [
-        {"action": "makeList", "obj": "_root", "key": "l", "pred": []},
-        {"action": "set", "obj": "2@aaaaaaaa", "elemId": "_head",
-         "insert": True, "datatype": "uint", "value": 7, "pred": []}])
-    other = make_change("bbbbbbbb", 1, 1, [], [
-        {"action": "set", "obj": "_root", "key": "y", "datatype": "uint",
-         "value": 2, "pred": []}])
     for isolation in ("doc", "batch"):
-        with pytest.raises(NotPortedError) as err:
-            farm.apply_changes([[lst], [other]], isolation=isolation)
-        assert err.value.slice_name == "opset"
-    assert farm.get_heads(0) == heads and farm.get_heads(1) == []
-    assert farm.fault_counts == [0, 0] and not farm.quarantine
-    assert farm.engine.lengths.tolist() == [1, 0]
+        jax = TpuDocFarm(2, capacity=32)
+        farm = TorchDocFarm(2, capacity=32, device="cpu")
+        same(farm.apply_changes([[ok], []], isolation=isolation),
+             jax.apply_changes([[ok], []], isolation=isolation))
+        heads = farm.get_heads(0)
+        lst = make_change("aaaaaaaa", 2, 2, heads, [
+            {"action": "makeList", "obj": "_root", "key": "l", "pred": []},
+            {"action": "set", "obj": "2@aaaaaaaa", "elemId": "_head",
+             "insert": True, "datatype": "uint", "value": 7, "pred": []}])
+        other = make_change("bbbbbbbb", 1, 1, [], [
+            {"action": "set", "obj": "_root", "key": "y", "datatype": "uint",
+             "value": 2, "pred": []}])
+        same(farm.apply_changes([[lst], [other]], isolation=isolation),
+             jax.apply_changes([[lst], [other]], isolation=isolation))
+        for d in range(2):
+            same(farm.get_patch(d), jax.get_patch(d))
+        more = make_change("aaaaaaaa", 3, 4, farm.get_heads(0), [
+            {"action": "set", "obj": "2@aaaaaaaa", "elemId": "3@aaaaaaaa",
+             "insert": True, "datatype": "uint", "value": 8, "pred": []}])
+        over = make_change("bbbbbbbb", 2, 1 << 24, farm.get_heads(1), [
+            {"action": "set", "obj": "_root", "key": "y", "datatype": "uint",
+             "value": 3, "pred": ["1@bbbbbbbb"]}])
+        if isolation == "batch":
+            before = [farm.get_patch(d) for d in range(2)]
+            lengths = farm.engine.lengths.tolist()
+            with pytest.raises(PackingLimitError):
+                farm.apply_changes([[more], [over]], isolation="batch")
+            assert [farm.get_patch(d) for d in range(2)] == before
+            assert farm.engine.lengths.tolist() == lengths
+            assert farm.exact[0].get_patch() == before[0]
+            assert farm.fault_counts == [0, 0] and not farm.quarantine
+        else:
+            got = farm.apply_changes([[more], [over]])
+            same(got, jax.apply_changes([[more], [over]]))
+            assert list(got.quarantined) == [1]
+            for d in range(2):
+                same(farm.get_patch(d), jax.get_patch(d))
 
 
 def test_sync_v2_raises_not_ported():
@@ -203,6 +230,16 @@ def test_sync_v2_raises_not_ported():
 
 
 def test_carry_refuses_list_documents():
-    export = {"exact": object(), "num_elems": 0}
-    with pytest.raises(ValueError):
-        doc_from_jax_export(export)
+    """List documents carry across now (tests/test_torch_farm_lists.py);
+    what is still refused is a document in the JAX farm's degraded mode
+    (walk-served after a failed device dispatch), which this package has
+    not ported."""
+    jax = TpuDocFarm(2, capacity=32)
+    bufs = [[make_change(a, 1, 1, [], [
+        {"action": "set", "obj": "_root", "key": "x", "datatype": "uint",
+         "value": 1, "pred": []}])] for a in ("aaaaaaaa", "bbbbbbbb")]
+    with faults.inject("farm.device_dispatch", faults.fail_docs([0])):
+        result = jax.apply_changes(bufs)
+    assert list(result.quarantined) == [0] and 1 in jax.degraded
+    with pytest.raises(ValueError, match="degraded"):
+        doc_from_jax_export(jax.export_doc(1))
