@@ -108,12 +108,11 @@ def check_tensor(name, t, dtype, shape) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """The current CUDA stream of `device`, for a kernel launcher."""
+def stream_ptr(device: int) -> int:
+    """The current CUDA stream of card `device` (an index) as a pointer,
+    for a kernel launcher: the capture stream while a CUDA graph is being
+    captured. Read without building a ``torch.cuda.Stream``, which costs
+    the host more than a small kernel's launch."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def tensor_ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    return torch._C._cuda_getCurrentRawStream(device)

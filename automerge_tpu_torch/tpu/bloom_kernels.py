@@ -21,9 +21,7 @@ import ctypes
 import torch
 
 from ..kernels import check_tensor as _check
-from ..kernels import load
-from ..kernels import stream_ptr as _stream
-from ..kernels import tensor_ptr as _ptr
+from ..kernels import load, stream_ptr
 from ..sync import BITS_PER_ENTRY, NUM_PROBES
 
 WORD_BITS = 32
@@ -52,8 +50,9 @@ def _to_i32_bits(v):
 
 def _probes(xyz, modulo):
     """[NUM_PROBES, B, N] int64 probe positions; xyz [B, N, 3] int32 bits,
-    modulo [B]."""
-    m = modulo.long().clamp(min=1)[:, None]
+    modulo [B] int32 read as uint32 (JAX's ``maximum(modulo.astype(uint32),
+    1)``, sync_batch.py:73)."""
+    m = (modulo.long() & _U32).clamp(min=1)[:, None]
     u = xyz.long() & _U32
     x, y, z = u[..., 0] % m, u[..., 1] % m, u[..., 2] % m
     out = [x]
@@ -99,21 +98,50 @@ def _lib():
     lib = load("bloom")
     if not getattr(lib, "_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.bloom_build_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.bloom_build_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                           ci, vp]
         lib.bloom_build_launch.restype = ci
         lib.bloom_query_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.bloom_query_launch.restype = ci
-        lib.bloom_build_smem_limit.argtypes = [ci]
-        lib.bloom_build_smem_limit.restype = ci
+        for fn in (lib.bloom_smem_limit, lib.bloom_sm_count):
+            fn.argtypes = [ci]
+            fn.restype = ci
+        lib.bloom_build_plan.argtypes = [ci] * 5
+        lib.bloom_build_plan.restype = ci
         lib._bound = True
     return lib
 
 
+#: device index -> (shared-memory opt-in limit per block, SM count), read
+#: once per device per process
+_DEVICE_LIMITS: dict[int, tuple[int, int]] = {}
+
+
+def _device_limits(lib, device: int) -> tuple[int, int]:
+    limits = _DEVICE_LIMITS.get(device)
+    if limits is None:
+        limits = _DEVICE_LIMITS[device] = (lib.bloom_smem_limit(device),
+                                           lib.bloom_sm_count(device))
+    return limits
+
+
+def build_plan(batch: int, num_entries: int, num_words: int,
+               device: int = 0) -> int:
+    """How ``bloom_build`` launches on card `device` at this shape: 0 =
+    the packed kernel; k >= 1 = the split kernel on clusters of k blocks
+    (1 = one block per filter, no cluster). The rule is the launcher's
+    own (``bloom_build_plan`` in ``csrc/bloom.cu``)."""
+    lib = _lib()
+    return lib.bloom_build_plan(batch, num_entries, num_words,
+                                *_device_limits(lib, device))
+
+
 def bloom_build(xyz, counts, num_words: int):
     """Builds B Bloom filters: xyz [B, E, 3] int32 (uint32 bits), counts
-    [B] int32 -> (words [B, num_words] int32 bits, modulo [B] int32).
-    Launches ``bloom_build_kernel`` for card tensors, the plain version
-    for CPU tensors."""
+    [B] int32 -> (words [B, num_words] int32 bits, modulo [B] int32; two
+    views of one buffer). Launches ``bloom_build_packed_kernel`` or
+    ``bloom_build_split_kernel`` for card tensors, the plain version for
+    CPU tensors."""
     if xyz.device.type == "cpu":
         return bloom_build_plain(xyz, counts, num_words)
     batch, width, _ = xyz.shape
@@ -123,25 +151,26 @@ def bloom_build(xyz, counts, num_words: int):
         raise ValueError("xyz and counts must be on one device")
     if num_words < 1:
         raise ValueError("num_words must be positive")
-    lib = _lib()
-    dev = xyz.device.index if xyz.device.index is not None else torch.cuda.current_device()
-    smem = num_words * 4
-    if smem > lib.bloom_build_smem_limit(dev):
+    lib, dev = _lib(), xyz.get_device()
+    smem_limit, num_sms = _device_limits(lib, dev)
+    if num_words * 4 > smem_limit:
         raise ValueError(
-            f"a {num_words}-word filter row ({smem} bytes) does not fit in "
-            "one block's shared memory"
+            f"a {num_words}-word filter row ({num_words * 4} bytes) does not "
+            "fit in one block's shared memory"
         )
-    words = torch.empty(batch, num_words, dtype=torch.int32, device=xyz.device)
-    modulo = torch.empty(batch, dtype=torch.int32, device=xyz.device)
+    out = torch.empty(batch * (num_words + 1), dtype=torch.int32,
+                      device=xyz.device)
+    words = out[: batch * num_words].view(batch, num_words)
+    modulo = out[batch * num_words:]
     if batch == 0:
         return words, modulo
-    threads = min(256, max(32, -(-width // 32) * 32))
     err = lib.bloom_build_launch(
-        _ptr(xyz), _ptr(counts), _ptr(words), _ptr(modulo), batch, width,
-        num_words, threads, _stream(xyz.device),
+        xyz.data_ptr(), counts.data_ptr(), words.data_ptr(),
+        modulo.data_ptr(), batch, width, num_words, smem_limit, num_sms,
+        stream_ptr(dev),
     )
     if err:
-        raise RuntimeError(f"bloom_build_kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"bloom_build launch failed: CUDA error {err}")
     LAUNCHES["bloom_build"] += 1
     return words, modulo
 
@@ -168,8 +197,9 @@ def bloom_query(words, modulo, counts, query_xyz):
     if batch * cand == 0:
         return out
     err = _lib().bloom_query_launch(
-        _ptr(words), _ptr(modulo), _ptr(counts), _ptr(query_xyz), _ptr(out),
-        batch, cand, num_words, _stream(words.device),
+        words.data_ptr(), modulo.data_ptr(), counts.data_ptr(),
+        query_xyz.data_ptr(), out.data_ptr(), batch, cand, num_words,
+        stream_ptr(words.get_device()),
     )
     if err:
         raise RuntimeError(f"bloom_query_kernel launch failed: CUDA error {err}")

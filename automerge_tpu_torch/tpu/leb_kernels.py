@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from ..kernels import check_tensor, load, stream_ptr, tensor_ptr
+from ..kernels import check_tensor, load, stream_ptr
 
 #: launches of the kernel on the card (the CPU path never counts)
 LAUNCHES = {"leb128_segment_sum": 0}
@@ -68,8 +68,8 @@ def leb128_segment_sum(planes, seg_ids, num_segments: int):
     if num_segments * p == 0:
         return out
     err = _lib().leb128_segment_sum_launch(
-        tensor_ptr(planes), tensor_ptr(seg_ids), tensor_ptr(out), n, p,
-        num_segments, stream_ptr(planes.device),
+        planes.data_ptr(), seg_ids.data_ptr(), out.data_ptr(), n, p,
+        num_segments, stream_ptr(planes.get_device()),
     )
     if err:
         raise RuntimeError(

@@ -7,8 +7,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. build the CUDA kernels from ``automerge_tpu_torch/csrc`` into
    ``build/kernels/`` (one ``nvcc`` per source, started together), timed;
-2. hold each kernel against its plain PyTorch version on the card,
-   bit-exact, at edge shapes;
+2. hold each Bloom kernel against its plain PyTorch version on the card,
+   bit-exact, at edge shapes (see ``edge_checks``: ragged packed blocks,
+   the cluster split, a modulo with bit 31 set, negative counts);
 3. the main path: a server ``TorchDocFarm`` of ``--docs`` (512)
    map/counter documents and 8 replica farms of the same documents. Each
    replica makes 8 changes of 16 ops to every document (sets on 64 root
@@ -18,9 +19,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``--docs`` server channels per sweep, one ``receive_messages`` call per
    replica. Every farm must end
    with equal heads and equal whole-document patches, and both Bloom
-   kernels must have launched. The kernels are then held against their
-   plain versions again on the inputs of their largest main-path launch,
-   and timed there (CUDA events);
+   kernels must have launched; the launches are logged by shape. The
+   kernels are then held against their plain versions again on the
+   inputs of their largest main-path launch and timed there: device time
+   per launch from a CUDA-graph replay, time per eager call, the launch
+   floor, and the profiler's kernel mean as a cross-check
+   (``kernel_times``);
 4. the same scenario at 16 documents, once on the card and once on the
    CPU: every sync message and every patch must be byte-identical;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
@@ -43,7 +47,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    is then held against its plain version at that launch and timed;
 9. phase 7 at 2 docs x 20 changes and phase 6 at 16 docs, once on the
    card and once on the CPU: messages, patches, ranks and texts must be
-   byte-identical.
+   byte-identical;
+10. long histories (``run_long_history``): a server farm holds 2 map/counter
+   documents of 10,000 changes (4 ops each); a fresh peer farm joins over
+   the Bloom sync, then each side makes 8 changes per doc and they
+   reconnect from a fresh sync state. Both farms must converge, and the
+   sync must have built a filter on a cluster of blocks (the split
+   build) and queried a live filter with more than 256 candidates. The
+   Bloom kernels are held against their plain versions on the inputs of
+   this phase's largest launches and timed there: the ``wide`` entry of
+   their rows.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after. The line before the last is the kernel table (JSON); the
@@ -53,6 +66,7 @@ themselves, made from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -69,6 +83,9 @@ NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 MAP_REPLICAS, MAP_CHANGES, MAP_OPS = 8, 8, 16
 # configuration 2 per document: changes per actor, ops per change (2 actors)
 TEXT_CHANGES, TEXT_OPS = 100, 50
+# phase 10 per document: history changes, ops per change, changes each side
+# makes before it reconnects
+LONG_CHANGES, LONG_OPS, LONG_NEW = 10_000, 4, 8
 
 
 def log(*args):
@@ -90,25 +107,31 @@ def decode_cache_env(docs, replicas=MAP_REPLICAS, changes=MAP_CHANGES):
 # the scenario: replicas edit, then sync with the server until quiescent
 
 
-def make_edits(docs, replicas, changes, ops, seed):
+def make_edits(docs, replicas, changes, ops, seed, first_actor=1,
+               base=None):
     """Per replica, per change index, one change buffer per document: the
     first change sets the replica's counter and 15 root keys, later ones
     increment that counter and set 15 root keys (a set names the
-    replica's previous op on its key as pred)."""
+    replica's previous op on its key as pred). Replica r's actor is
+    number ``first_actor + r``. ``base``, when given, is (per-doc heads,
+    largest op counter) of the history the changes build on: the first
+    change of each doc depends on those heads, and op counters continue
+    above it."""
     from automerge_tpu_torch.columnar import decode_change_columns, encode_change
 
     rng = np.random.default_rng(seed)
+    base_heads, base_op = base or ([[] for _ in range(docs)], 0)
     out = []
     for r in range(replicas):
-        actor = f"{r + 1:02x}" * 16
+        actor = f"{r + first_actor:02x}" * 16
         per_change = []
-        heads = [[] for _ in range(docs)]
+        heads = [list(h) for h in base_heads]
         last = [dict() for _ in range(docs)]
         keys = rng.integers(0, 64, size=(changes, docs, ops - 1))
         vals = rng.integers(0, 1 << 20, size=(changes, docs, ops - 1))
         incs = rng.integers(1, 10, size=(changes, docs))
         for c in range(changes):
-            start = c * ops + 1
+            start = base_op + c * ops + 1
             bufs = []
             for d in range(docs):
                 if c == 0:
@@ -116,7 +139,8 @@ def make_edits(docs, replicas, changes, ops, seed):
                              "value": 0, "datatype": "counter", "pred": []}
                 else:
                     first = {"action": "inc", "obj": "_root", "key": "ctr",
-                             "value": int(incs[c, d]), "pred": [f"1@{actor}"]}
+                             "value": int(incs[c, d]),
+                             "pred": [f"{base_op + 1}@{actor}"]}
                 body = [first]
                 for i in range(ops - 1):
                     key = f"k{int(keys[c, d, i])}"
@@ -262,6 +286,55 @@ def check_converged(farms, docs):
                 raise RuntimeError(f"doc {d}: patches differ across farms")
         patches.append(want)
     return patches
+
+
+def run_long_history(device, docs, changes, ops, new, seed):
+    """A fresh peer joins documents with a long history, then both sides
+    edit and reconnect without their sync state. The server farm is
+    loaded with `changes` changes of `ops` ops per doc by one actor, in
+    one ``apply_changes`` call (set-up: the history it accumulated
+    before). An empty peer farm syncs with it until no message moves: the
+    server's first filter holds a doc's whole history, and it queries
+    that history against the peer's empty filter. Then the peer and the
+    server each make `new` changes per doc on top of the history (one
+    actor each), both start again from Automerge's ``initSyncState`` (a
+    client that does not persist its sync state reconnects), and they
+    sync until quiet: each side's filter holds its whole history, and each
+    queries its whole history against the other's. Returns (farms, stats)."""
+    from automerge_tpu_torch import SyncFarm, TorchDocFarm
+
+    capacity = (changes + 2 * new) * ops
+    server = TorchDocFarm(docs, capacity=capacity, device=device)
+    peer = TorchDocFarm(docs, capacity=capacity, device=device)
+    history = make_edits(docs, 1, changes, ops, seed)[0]
+    t0 = time.perf_counter()
+    result = server.apply_changes(
+        [[history[c][d] for c in range(changes)] for d in range(docs)])
+    if result.quarantined:
+        raise RuntimeError(f"history quarantined: {result.quarantined}")
+    _sync(device)
+    stats = {"load_s": time.perf_counter() - t0}
+    ssync, psync = SyncFarm(server), SyncFarm(peer)
+    t0 = time.perf_counter()
+    stats["join"] = sync_until_quiet(device, ssync, [psync], docs,
+                                     lambda _: None)
+    stats["join_s"] = time.perf_counter() - t0
+    base = ([server.get_heads(d) for d in range(docs)], changes * ops)
+    t0 = time.perf_counter()
+    for farm, actor in ((peer, 2), (server, 3)):
+        edits = make_edits(docs, 1, new, ops, seed + actor, first_actor=actor,
+                           base=base)[0]
+        for bufs in edits:
+            result = farm.apply_changes([[b] for b in bufs])
+            if result.quarantined:
+                raise RuntimeError(f"edit quarantined: {result.quarantined}")
+    _sync(device)
+    stats["edit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats["rejoin"] = sync_until_quiet(device, ssync, [psync], docs,
+                                       lambda _: None)
+    stats["rejoin_s"] = time.perf_counter() - t0
+    return [server, peer], stats
 
 
 # ---------------------------------------------------------------------- #
@@ -572,6 +645,10 @@ def varint_stream(buffers):
 
 
 def _time_cuda(fn, iters=50):
+    """Per call: CUDA events around `iters` eager calls of `fn` after 3
+    warm-up calls. For a kernel wrapper this is what its caller pays per
+    call (``call_ms``): when the wrapper's host work outlasts the kernel,
+    the stream runs dry between launches and this measures the host."""
     import torch
 
     for _ in range(3):
@@ -585,6 +662,88 @@ def _time_cuda(fn, iters=50):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_graph(fn, iters=50, replays=5):
+    """Device time per launch (``ms``): `iters` calls of `fn` captured
+    into one CUDA graph (the ctypes launchers enqueue on the current
+    stream, which is the capture stream), so the launches run back to back
+    with no host work between them. Median over `replays` replays, each
+    timed alone between CUDA events after one warm-up replay, divided by
+    `iters`."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return float(np.median(times))
+
+
+def launch_floor_ms():
+    """``floor_ms``: `_time_graph` of a one-element in-place add, the
+    launch floor no kernel can beat."""
+    import torch
+
+    t = torch.zeros(1, device="cuda")
+    return _time_graph(lambda: t.add_(1))
+
+
+def _profiler_ms(fn, kernel, iters=50):
+    """Cross-check of ``ms``: the mean device time per launch of the
+    kernels whose name contains `kernel`, as torch.profiler (CUPTI)
+    reports it over `iters` eager calls. None, with the reason logged,
+    when the trace holds no such kernel or the profiler fails: it is a
+    second reading, and ``ms`` does not depend on it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for evt in prof.key_averages():
+            if kernel not in evt.key:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0.0)
+            total_us += us
+            count += evt.count
+    except Exception as exc:  # noqa: BLE001 - a failed cross-check is logged
+        log(f"  profiler cross-check of {kernel} failed: {exc!r}")
+        return None
+    if count == 0 or total_us <= 0:
+        log(f"  profiler cross-check of {kernel}: no device time in the "
+            "trace")
+        return None
+    return total_us / count / 1e3
+
+
+def kernel_times(fn, kernel, floor_ms):
+    """The timing fields of one kernel-table row (see `_time_graph`,
+    `_time_cuda`, `launch_floor_ms`, `_profiler_ms`)."""
+    return {"ms": _time_graph(fn), "call_ms": _time_cuda(fn),
+            "floor_ms": floor_ms, "profiler_ms": _profiler_ms(fn, kernel)}
 
 
 def _max_abs_err(got, want):
@@ -618,16 +777,32 @@ def check_query(words, modulo, counts, query):
 
 def edge_checks(device):
     """Bit-exact kernel-vs-plain checks at the edge shapes: counts 0 and
-    1, a word count that is not a multiple of 32, a 10,000-entry filter
-    (3,125 words), and a candidate count that is not a power of two."""
+    1, negative counts (their modulo rounds as JAX's ceil), a word count
+    that is not a multiple of 32, a candidate count that is not a power
+    of two, batches that are not a multiple of the filters one block
+    packs, an entry count just above the packed limit (256) and just
+    above one split block's share (1,024), candidate counts on both sides
+    of one block (256), a row above 48 KB of shared memory, the
+    10,000-entry filter (3,125 words) at B 2 and B 1 (the cluster split);
+    then queries on rows and moduli made directly: a modulo with bit 31
+    set (the kernel's wrapping branch), exactly 2^31, and a 64 KB row
+    that is not staged in shared memory."""
     import torch
 
     rng = np.random.default_rng(7)
     cases = [  # (batch, entries, words, candidates, counts)
         (4, 3, 1, 5, [0, 1, 0, 1]),
+        (4, 8, 4, 6, [-1, 3, -9, -2**20]),
         (3, 64, 20, 33, [64, 40, 0]),
-        (2, 10_000, 3125, 1001, [10_000, 9_999]),
         (5, 12, 16, 9, [12, 7, 1, 0, 3]),
+        (5, 64, 20, 64, [64, 63, 1, 0, 64]),
+        (9, 32, 10, 16, [32, 31, 30, 2, 1, 0, 17, 32, 5]),
+        (3, 129, 41, 130, [129, 100, 0]),
+        (3, 257, 81, 257, [257, 200, 0]),
+        (1, 1025, 321, 200, [1025]),
+        (2, 2000, 16_384, 64, [2000, 1500]),
+        (2, 10_000, 3125, 1001, [10_000, 9_999]),
+        (1, 10_000, 3125, 1001, [10_000]),
     ]
     for batch, entries, num_words, cands, counts in cases:
         xyz = rng.integers(0, 2**32, (batch, entries, 3), dtype=np.uint32)
@@ -641,10 +816,23 @@ def edge_checks(device):
                     torch.from_numpy(q.view(np.int32)).to(device))
         log(f"  edge ok: B={batch} E={entries} W={num_words} C={cands} "
             f"counts={counts[:4]}")
+    direct = [  # (words, candidates, moduli as int32, counts)
+        (64, 40, [-8, -2**31, 2**31 - 8, 640], [5, 5, 5, 0]),
+        (16_384, 70, [32 * 16_384, 1000, -8], [1, 7, 3]),
+    ]
+    for num_words, cands, moduli, counts in direct:
+        batch = len(moduli)
+        words = rng.integers(0, 2**32, (batch, num_words), dtype=np.uint32)
+        q = rng.integers(0, 2**32, (batch, cands, 3), dtype=np.uint32)
+        check_query(torch.from_numpy(words.view(np.int32)).to(device),
+                    torch.tensor(moduli, dtype=torch.int32, device=device),
+                    torch.tensor(counts, dtype=torch.int32, device=device),
+                    torch.from_numpy(q.view(np.int32)).to(device))
+        log(f"  edge ok: query W={num_words} C={cands} moduli={moduli}")
 
 
 def build_bound(xyz, counts, num_words):
-    live = int(counts.clamp(max=xyz.shape[1]).long().sum().item())
+    live = int(counts.clamp(0, xyz.shape[1]).long().sum().item())
     batch = xyz.shape[0]
     nbytes = live * 12 + batch * 4 + batch * num_words * 4 + batch * 4
     ops = live * 7 * 5  # per probe: two adds, two modulos, one OR
@@ -660,6 +848,86 @@ def query_bound(words, counts, query):
     ops = live * cands * 7 * 6  # per probe: adds, modulos, shift, AND
     return max(nbytes / HBM_BYTES_PER_S, ops / NON_TENSOR_OPS_PER_S) * 1e3, \
         nbytes, ops
+
+
+def _pow2(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def wide_bloom_inputs(device, seed=7):
+    """Inputs of phase 10's largest launches (`run_long_history` at the
+    defaults), made directly, for timing two checkouts' kernels alike
+    (chip_compare.py). The join's build: B 2 filters of 10,000 entries in
+    the sync farm's pow2 bucket (E 16,384, W 5,120). The join's query: the
+    peer tests the 10,000 changes it received (C 16,384 bucket) against
+    the server's filters of the same 10,000, whose 3,125 wire words sit
+    in the W 4,096 bucket. The query's rows come from the plain build, so
+    making them launches no kernel. Returns (build args, query args)."""
+    import torch
+
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
+
+    rng = np.random.default_rng(seed)
+    docs, width = 2, _pow2(LONG_CHANGES)
+    xyz = np.zeros((docs, width, 3), np.uint32)
+    xyz[:, :LONG_CHANGES] = rng.integers(0, 2**32, (docs, LONG_CHANGES, 3),
+                                         dtype=np.uint32)
+    t_xyz = torch.from_numpy(xyz.view(np.int32)).to(device)
+    counts = torch.full((docs,), LONG_CHANGES, dtype=torch.int32,
+                        device=device)
+    wire_words = -(-LONG_CHANGES * 10 // 32)
+    words, modulo = bk.bloom_build_plain(t_xyz, counts, wire_words)
+    padded = torch.zeros(docs, _pow2(wire_words), dtype=torch.int32,
+                         device=device)
+    padded[:, :wire_words] = words
+    return (t_xyz, counts, -(-width * 10 // 32)), (padded, modulo, counts,
+                                                   t_xyz)
+
+
+def bloom_timings(bk, build_args, query_args, floor_ms):
+    """Timing fields (`kernel_times`), plain time, bound and shape of the
+    Bloom kernels of module `bk` (this checkout's, or another checkout's
+    in chip_compare.py) at one pair of inputs: (build row, query row).
+    ``copy_ms`` is a yardstick, not a library twin: the same graph timing
+    of one device-to-device copy of the entries (build) or candidates
+    (query), the bulk of the bytes each kernel must read."""
+    import torch
+
+    xyz, counts, num_words = build_args
+    q_words, _, q_counts, query = query_args
+    b_bound, b_bytes, _ = build_bound(xyz, counts, num_words)
+    q_bound, q_bytes, _ = query_bound(q_words, q_counts, query)
+    copy_x, copy_q = torch.empty_like(xyz), torch.empty_like(query)
+    build = {
+        **kernel_times(lambda: bk.bloom_build(*build_args), "bloom_build",
+                       floor_ms),
+        "copy_ms": _time_graph(lambda: copy_x.copy_(xyz)),
+        "plain_ms": _time_cuda(lambda: bk.bloom_build_plain(*build_args),
+                               iters=10),
+        "bound_ms": b_bound,
+        "shape": {"B": xyz.shape[0], "E": xyz.shape[1], "W": num_words,
+                  "bytes": b_bytes}}
+    query_row = {
+        **kernel_times(lambda: bk.bloom_query(*query_args), "bloom_query",
+                       floor_ms),
+        "copy_ms": _time_graph(lambda: copy_q.copy_(query)),
+        "plain_ms": _time_cuda(lambda: bk.bloom_query_plain(*query_args),
+                               iters=10),
+        "bound_ms": q_bound,
+        "shape": {"B": q_words.shape[0], "C": query.shape[1],
+                  "W": q_words.shape[1], "bytes": q_bytes}}
+    return build, query_row
+
+
+def log_bloom_rows(rows, at=None):
+    """Logs the timing fields of the two Bloom rows of the kernel table:
+    at their main-path launch, or at the shape stored under key `at`."""
+    for row in rows[:2]:
+        r = row if at is None else row[at]
+        log(f"  {row['name']} {r['shape']}: ms {r['ms']:.5f} (device), "
+            f"call_ms {r['call_ms']:.5f}, copy_ms {r['copy_ms']:.5f}, "
+            f"profiler_ms {r['profiler_ms']}, bound_ms {r['bound_ms']:.6f}, "
+            f"plain_ms {r['plain_ms']:.4f}")
 
 
 def check_segsum(planes, seg_ids, num_segments):
@@ -756,13 +1024,17 @@ def check_text_samples(texts, kept):
 
 
 class LargestLaunch:
-    """Wraps a kernel entry of sync_batch to keep a copy of the inputs of
-    its largest call (by element count) during the main path."""
+    """Wraps a kernel entry to keep a copy of the inputs of its largest
+    call (by element count). With `shape_of` it also tallies its calls by
+    shape: ``shapes[key] = [calls, most live entries of one filter]``,
+    where `shape_of(*args)` gives (key, the filters' counts)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, shape_of=None):
         self.fn = fn
+        self.shape_of = shape_of
         self.size = -1
         self.args = None
+        self.shapes = {}
 
     def __call__(self, *args):
         size = sum(a.numel() for a in args if hasattr(a, "numel"))
@@ -770,7 +1042,51 @@ class LargestLaunch:
             self.size = size
             self.args = tuple(a.clone() if hasattr(a, "clone") else a
                               for a in args)
+        if self.shape_of is not None:
+            key, counts = self.shape_of(*args)
+            tally = self.shapes.setdefault(key, [0, 0])
+            tally[0] += 1
+            tally[1] = max(tally[1], int(counts.max().item()))
         return self.fn(*args)
+
+
+@contextlib.contextmanager
+def recorded_bloom_launches():
+    """Routes sync_batch's two Bloom entries through `LargestLaunch`
+    recorders while the block runs; yields (build, query). Build shapes
+    are (B, E, W), query shapes (B, C, W)."""
+    from automerge_tpu_torch.tpu import sync_batch
+
+    build = LargestLaunch(
+        sync_batch.bloom_build,
+        lambda xyz, counts, w: ((xyz.shape[0], xyz.shape[1], w), counts))
+    query = LargestLaunch(
+        sync_batch.bloom_query,
+        lambda words, modulo, counts, q: (
+            (q.shape[0], q.shape[1], words.shape[1]), counts))
+    sync_batch.bloom_build, sync_batch.bloom_query = build, query
+    try:
+        yield build, query
+    finally:
+        sync_batch.bloom_build, sync_batch.bloom_query = build.fn, query.fn
+
+
+def log_bloom_shapes(build, query):
+    """Logs the recorded launches by shape, each build with its plan
+    (0 = packed, k = split on clusters of k blocks). Returns the largest
+    cluster size a build launched with."""
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
+
+    largest = 0
+    for (b, e, w), (n, live) in sorted(build.shapes.items()):
+        plan = bk.build_plan(b, e, w)
+        largest = max(largest, plan)
+        log(f"  bloom_build B={b} E={e} W={w}: {n} launches, at most {live} "
+            f"live entries, plan {plan}")
+    for (b, c, w), (n, live) in sorted(query.shapes.items()):
+        log(f"  bloom_query B={b} C={c} W={w}: {n} launches, filters of at "
+            f"most {live} entries")
+    return largest
 
 
 def main(argv=None) -> int:
@@ -829,17 +1145,15 @@ def main(argv=None) -> int:
         f"({time.perf_counter() - t0:.2f} s)")
 
     # 3. main path
-    rec_build = LargestLaunch(sync_batch.bloom_build)
-    rec_query = LargestLaunch(sync_batch.bloom_query)
-    sync_batch.bloom_build, sync_batch.bloom_query = rec_build, rec_query
     prof = PhaseProfile()
     bk.reset_launch_counts()
     t0 = time.perf_counter()
-    farms, stats = run_scenario(device, args.docs, args.replicas,
-                                args.changes, args.ops, args.seed, prof=prof)
+    with recorded_bloom_launches() as (rec_build, rec_query):
+        farms, stats = run_scenario(device, args.docs, args.replicas,
+                                    args.changes, args.ops, args.seed,
+                                    prof=prof)
     launches = dict(bk.LAUNCHES)
     main_s = time.perf_counter() - t0
-    sync_batch.bloom_build, sync_batch.bloom_query = rec_build.fn, rec_query.fn
     t0 = time.perf_counter()
     check_converged(farms, args.docs)
     check_s = time.perf_counter() - t0
@@ -867,37 +1181,29 @@ def main(argv=None) -> int:
     for line in prof.table().splitlines():
         log("    " + line)
 
-    # kernels at the main path's largest launch: exactness, time, bound
-    xyz, counts, num_words = rec_build.args
-    words, modulo, build_err = check_build(xyz, counts, num_words)
-    q_words, q_mod, q_counts, query = rec_query.args
-    query_err = check_query(q_words, q_mod, q_counts, query)
-    b_bound, b_bytes, _ = build_bound(xyz, counts, num_words)
-    q_bound, q_bytes, _ = query_bound(q_words, q_counts, query)
+    log_bloom_shapes(rec_build, rec_query)
+
+    # kernels at the main path's largest launch: exactness, times, bounds
+    floor_ms = launch_floor_ms()
+    _, _, build_err = check_build(*rec_build.args)
+    query_err = check_query(*rec_query.args)
+    b_main, q_main = bloom_timings(bk, rec_build.args, rec_query.args,
+                                   floor_ms)
     table = {"kernels": [
         {"name": "bloom_build", "route": "cuda",
          "source": "automerge_tpu_torch/csrc/bloom.cu",
          "replaces": "automerge_tpu/tpu/pallas_kernels.py:258",
          "launches": launches["bloom_build"], "max_abs_err": build_err,
-         "ms": _time_cuda(lambda: bk.bloom_build(xyz, counts, num_words)),
-         "plain_ms": _time_cuda(
-             lambda: bk.bloom_build_plain(xyz, counts, num_words), iters=10),
-         "bound_ms": b_bound, "bound_by": "bytes", "library_ms": None,
-         "shape": {"B": xyz.shape[0], "E": xyz.shape[1], "W": num_words,
-                   "bytes": b_bytes}},
+         **b_main, "bound_by": "bytes", "library_ms": None},
         {"name": "bloom_query", "route": "cuda",
          "source": "automerge_tpu_torch/csrc/bloom.cu",
          "replaces": "automerge_tpu/tpu/pallas_kernels.py:113",
          "launches": launches["bloom_query"], "max_abs_err": query_err,
-         "ms": _time_cuda(
-             lambda: bk.bloom_query(q_words, q_mod, q_counts, query)),
-         "plain_ms": _time_cuda(
-             lambda: bk.bloom_query_plain(q_words, q_mod, q_counts, query),
-             iters=10),
-         "bound_ms": q_bound, "bound_by": "bytes", "library_ms": None,
-         "shape": {"B": q_words.shape[0], "C": query.shape[1],
-                   "W": q_words.shape[1], "bytes": q_bytes}},
+         **q_main, "bound_by": "bytes", "library_ms": None},
     ]}
+    log(f"  launch floor (graph replay of a 1-element add): {floor_ms:.5f} "
+        "ms")
+    log_bloom_rows(table["kernels"], None)
     del farms
 
     # 4. the same scenario at 16 docs: card vs CPU, byte for byte
@@ -984,9 +1290,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     prof7 = PhaseProfile()
     bk.reset_launch_counts()
-    tfarms, tstats = run_text_farm(device, args.farm_text_docs,
-                                   TEXT_CHANGES, TEXT_OPS,
-                                   args.seed, prof=prof7)
+    with recorded_bloom_launches() as (rec_build7, rec_query7):
+        tfarms, tstats = run_text_farm(device, args.farm_text_docs,
+                                       TEXT_CHANGES, TEXT_OPS,
+                                       args.seed, prof=prof7)
     launches7 = dict(bk.LAUNCHES)
     run_s = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -1008,6 +1315,7 @@ def main(argv=None) -> int:
         log(f"  sweep {i}: {dt * 1e3:.1f} ms, {moved} messages")
     log(f"  server rows {int(tfarms[0].engine.lengths.sum())}; kernel "
         f"launches: {launches7}")
+    log_bloom_shapes(rec_build7, rec_query7)
     log("  phase table (text farms, host clock):")
     for line in prof7.table().splitlines():
         log("    " + line)
@@ -1048,8 +1356,8 @@ def main(argv=None) -> int:
          "replaces": "automerge_tpu/tpu/pallas_kernels.py:222",
          "launches": launches8["leb128_segment_sum"],
          "max_abs_err": seg_err,
-         "ms": _time_cuda(lambda: lk.leb128_segment_sum(planes, seg_ids,
-                                                        nvar)),
+         **kernel_times(lambda: lk.leb128_segment_sum(planes, seg_ids, nvar),
+                        "leb128_segment_sum", floor_ms),
          "plain_ms": _time_cuda(
              lambda: lk.leb128_segment_sum_plain(planes, seg_ids, nvar),
              iters=10),
@@ -1078,6 +1386,51 @@ def main(argv=None) -> int:
     log(f"phase 9 card vs CPU (text farms at 2 docs x 20 changes, text engine "
         f"at 16 docs): {len(on_card)} messages, patches, ranks and texts "
         f"identical ({time.perf_counter() - t0:.2f} s)")
+
+    # 10. a fresh peer joins long-history documents, then both reconnect
+    t0 = time.perf_counter()
+    bk.reset_launch_counts()
+    with recorded_bloom_launches() as (rec_build10, rec_query10):
+        lfarms, lstats = run_long_history(device, 2, LONG_CHANGES, LONG_OPS,
+                                          LONG_NEW, args.seed)
+    launches10 = dict(bk.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    check_converged(lfarms, 2)
+    want_rows = 2 * (LONG_CHANGES + 2 * LONG_NEW) * LONG_OPS
+    for farm in lfarms:
+        if int(farm.engine.lengths.sum()) != want_rows:
+            raise RuntimeError(f"a long-history farm holds "
+                               f"{int(farm.engine.lengths.sum())} rows, want "
+                               f"{want_rows}")
+    log(f"phase 10 long history: 2 docs x {LONG_CHANGES} changes x "
+        f"{LONG_OPS} ops, a fresh peer joins, then {LONG_NEW} changes a "
+        f"side and a reconnect, card {card}")
+    log(f"  load {lstats['load_s']:.3f} s; join {lstats['join_s']:.3f} s in "
+        f"{len(lstats['join'])} sweeps; edits {lstats['edit_s']:.3f} s; "
+        f"reconnect {lstats['rejoin_s']:.3f} s in {len(lstats['rejoin'])} "
+        f"sweeps; whole phase {time.perf_counter() - t0:.3f} s (run "
+        f"{run_s:.3f} s); kernel launches: {launches10}")
+    cluster = log_bloom_shapes(rec_build10, rec_query10)
+    for name, n in launches10.items():
+        if n <= 0:
+            raise RuntimeError(f"the long-history sync never launched {name}")
+    if cluster < 2:
+        raise RuntimeError("the long-history sync built no filter on a "
+                           "cluster of blocks")
+    if not any(c > 256 and live > 0
+               for (_, c, _), (_, live) in rec_query10.shapes.items()):
+        raise RuntimeError("the long-history sync queried no live filter "
+                           "with more than 256 candidates")
+    del lfarms
+    # the kernels at phase 10's largest launches: exactness, times, bounds
+    check_build(*rec_build10.args)
+    check_query(*rec_query10.args)
+    for row, wide, n in zip(
+            table["kernels"],
+            bloom_timings(bk, rec_build10.args, rec_query10.args, floor_ms),
+            (launches10["bloom_build"], launches10["bloom_query"])):
+        row["wide"] = {**wide, "launches": n}
+    log_bloom_rows(table["kernels"], "wide")
 
     log(card)
     log(json.dumps(table))
