@@ -27,7 +27,14 @@ sides: the main path's launch shapes (build B 4,096 x E 64 x W 20 with
 entries per filter) and the shapes of chip_smoke's phase 10, a fresh
 peer joining two 10,000-change documents (``wide_bloom_inputs``: build
 B 2 x E 16,384 x W 5,120, query B 2 x C 16,384 x W 4,096, 10,000 live
-entries and candidates per filter).
+entries and candidates per filter). It then holds kernel 3 (the LEB128
+segmented sum) bit-exact against its plain version and times it
+(``leb_timings``) on a seeded stream of phase 8's size and varint length
+mix (``synthetic_varint_stream``), its planes and ids made as the device
+scan makes them (``segsum_inputs``): row ``leb_sorted`` on those ids as
+they come (sorted, as the scan makes them), row ``leb_unsorted`` on the
+same rows and ids shuffled together (``unsorted_ms``, held bit-exact
+inside ``leb_timings``).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -97,15 +104,24 @@ for label, (b_args, q_args) in (("main", main),
     h.check_query(*q_args)
     b_row, q_row = h.bloom_timings(bk, b_args, q_args, floor_ms)
     out["build_" + label], out["query_" + label] = b_row, q_row
+from automerge_tpu_torch.tpu import leb_kernels as lk
+data = torch.from_numpy(h.synthetic_varint_stream(h.PHASE8_VARINTS)).cuda()
+planes, seg, nvar = h.segsum_inputs(data)
+if not torch.equal(lk.leb128_segment_sum(planes, seg, nvar),
+                   lk.leb128_segment_sum_plain(planes, seg, nvar)):
+    raise RuntimeError("leb128_segment_sum disagrees with its plain version")
+row = out["leb_sorted"] = h.leb_timings(lk, planes, seg, nvar, floor_ms)
+out["leb_unsorted"] = {"ms": row["unsorted_ms"], "copy_ms": row["copy_ms"]}
 print(json.dumps(out))
 """
-_KERNEL_ROWS = ("build_main", "query_main", "build_wide", "query_wide")
+_KERNEL_ROWS = ("build_main", "query_main", "build_wide", "query_wide",
+                "leb_sorted", "leb_unsorted")
 
 
 def summarize_kernels(lines) -> dict:
     """Per side (A, B) and kernel row: the median over its turns of the
-    device ``ms``, of ``call_ms`` and of ``copy_ms``; and the median
-    ``floor_ms``."""
+    device ``ms``, of ``call_ms``, of ``copy_ms`` and, where the row has
+    one, of ``cold_ms``; and the median ``floor_ms``."""
     out = {}
     for side in "AB":
         runs = [line for line in lines if line["turn"] == side]
@@ -114,7 +130,8 @@ def summarize_kernels(lines) -> dict:
         for row in _KERNEL_ROWS:
             out[side][row] = {
                 m: float(np.median([r[row][m] for r in runs]))
-                for m in ("ms", "call_ms", "copy_ms")
+                for m in ("ms", "call_ms", "copy_ms", "cold_ms")
+                if m in runs[0][row]
             }
     return out
 
@@ -151,8 +168,8 @@ def main(argv=None) -> int:
     parser.add_argument("--docs", type=int, default=256)
     parser.add_argument("--turns", default="ABBA")
     parser.add_argument("--kernels", action="store_true",
-                        help="time the two checkouts' Bloom kernels instead "
-                        "of running phase 3")
+                        help="time the two checkouts' kernels instead of "
+                        "running phase 3")
     args = parser.parse_args(argv)
     trees = {"A": os.path.abspath(args.parent),
              "B": os.path.abspath(args.change)}

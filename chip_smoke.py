@@ -28,7 +28,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. the same scenario at 16 documents, once on the card and once on the
    CPU: every sync message and every patch must be byte-identical;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
-   card, bit-exact, at edge shapes, and run streams of 1- to 8-byte
+   card, bit-exact, at edge inputs (``segsum_edge_inputs``), each of which
+   must take the pass its ids call for (the sorted pass, or the general
+   pass behind a descending pair), and run streams of 1- to 8-byte
    varints (unsigned and signed) through the device scan;
 6. the repo's configuration 2 ("Automerge.Text: 2-actor concurrent
    insert/delete, 10k ops") on ``BatchedTextEngine`` at ``--text-docs``
@@ -43,8 +45,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    RGA rank + mirror) must equal the farm's embedded sequential walk's,
    and both Bloom kernels must have launched;
 8. the device LEB128 scan (kernel 3) over the varint stream of every
-   change buffer of phases 3 and 7, equal to the NumPy pass; the kernel
-   is then held against its plain version at that launch and timed;
+   change buffer of phases 3 and 7, equal to the NumPy pass, with one
+   torch.profiler trace of the scan (``scan_breakdown``); the kernel
+   must have taken its sorted pass there, and is then held against its
+   plain version at that launch and timed (``leb_timings``: warm, cold,
+   and on the same rows and ids shuffled, which takes the general pass);
 9. phase 7 at 2 docs x 20 changes and phase 6 at 16 docs, once on the
    card and once on the CPU: messages, patches, ranks and texts must be
    byte-identical;
@@ -705,11 +710,13 @@ def launch_floor_ms():
 
 
 def _profiler_ms(fn, kernel, iters=50):
-    """Cross-check of ``ms``: the mean device time per launch of the
-    kernels whose name contains `kernel`, as torch.profiler (CUPTI)
-    reports it over `iters` eager calls. None, with the reason logged,
-    when the trace holds no such kernel or the profiler fails: it is a
-    second reading, and ``ms`` does not depend on it."""
+    """Cross-check of ``ms``: the device time per call of the kernels
+    whose name contains `kernel`, as torch.profiler (CUPTI) reports it
+    over `iters` eager calls: each such kernel's mean time per launch,
+    summed over the kernels (a wrapper may launch several; the trace may
+    drop some launches, so no count of calls is assumed). None, with the
+    reason logged, when the trace holds no such kernel or the profiler
+    fails: it is a second reading, and ``ms`` does not depend on it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -720,23 +727,22 @@ def _profiler_ms(fn, kernel, iters=50):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us, count = 0.0, 0
+        per_launch_us = 0.0
         for evt in prof.key_averages():
-            if kernel not in evt.key:
+            if kernel not in evt.key or evt.count == 0:
                 continue
             us = getattr(evt, "self_device_time_total", None)
             if us is None:
                 us = getattr(evt, "self_cuda_time_total", 0.0)
-            total_us += us
-            count += evt.count
+            per_launch_us += us / evt.count
     except Exception as exc:  # noqa: BLE001 - a failed cross-check is logged
         log(f"  profiler cross-check of {kernel} failed: {exc!r}")
         return None
-    if count == 0 or total_us <= 0:
+    if per_launch_us <= 0:
         log(f"  profiler cross-check of {kernel}: no device time in the "
             "trace")
         return None
-    return total_us / count / 1e3
+    return per_launch_us / 1e3
 
 
 def kernel_times(fn, kernel, floor_ms):
@@ -744,6 +750,27 @@ def kernel_times(fn, kernel, floor_ms):
     `_time_cuda`, `launch_floor_ms`, `_profiler_ms`)."""
     return {"ms": _time_graph(fn), "call_ms": _time_cuda(fn),
             "floor_ms": floor_ms, "profiler_ms": _profiler_ms(fn, kernel)}
+
+
+def _time_cold(fn, iters=20, flush_mib=256):
+    """``cold_ms``: device time per call of `fn` with the 50 MB L2 cache
+    flushed before each call, for inputs that would not be warm in it.
+    One CUDA graph of `iters` x (a sum over a `flush_mib` MiB buffer, then
+    `fn`), less a graph of the flushes alone, over `iters`. The flush
+    reads, so it leaves clean lines in L2 and no write-back for `fn` to
+    pay."""
+    import torch
+
+    flush = torch.ones(flush_mib << 18, device="cuda")
+    total = torch.empty((), device="cuda")
+
+    def flushed():
+        torch.sum(flush, 0, out=total)
+        fn()
+
+    both = _time_graph(flushed, iters=iters)
+    alone = _time_graph(lambda: torch.sum(flush, 0, out=total), iters=iters)
+    return both - alone
 
 
 def _max_abs_err(got, want):
@@ -932,48 +959,104 @@ def log_bloom_rows(rows, at=None):
 
 def check_segsum(planes, seg_ids, num_segments):
     """The LEB128 kernel against its plain version on the same card
-    tensors: bit-exact, or the run fails. Returns the max abs error."""
+    tensors: bit-exact, or the run fails. Returns (max abs error, the pass
+    that produced the result: "sorted" or "general")."""
     import torch
 
     from automerge_tpu_torch.tpu import leb_kernels as lk
 
-    got = lk.leb128_segment_sum(planes, seg_ids, num_segments)
+    got, path = lk.leb128_segment_sum_path(planes, seg_ids, num_segments)
     want = lk.leb128_segment_sum_plain(planes, seg_ids, num_segments)
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         raise RuntimeError(
             f"leb128_segment_sum disagrees with its plain version "
-            f"(N={planes.shape[0]}, V={num_segments})"
+            f"(N={planes.shape[0]}, V={num_segments}, {path} pass)"
         )
-    return float((got - want).abs().max().item()) if got.numel() else 0.0
+    err = float((got - want).abs().max().item()) if got.numel() else 0.0
+    return err, path
 
 
-def leb_edge_checks(device):
-    """Bit-exact kernel-vs-plain checks of the LEB128 segmented sum: N = 1,
-    N and V not multiples of 8, -1 and >= V ids, unsorted ids, and
-    N > 512 with V > 128 (past the TPU kernel's tiles); then a stream of
-    1- to 8-byte varints, unsigned and signed, through the device scan
-    against the NumPy pass."""
-    import torch
+def sorted_ids(seg, num_segments):
+    """Whether the kernel's sorted pass suffices: the ids, clamped to -1
+    below 0 and to V from V up, never descend."""
+    c = np.clip(seg, -1, num_segments)
+    return bool(np.all(c[1:] >= c[:-1]))
 
-    from automerge_tpu_torch.codecs import Encoder
-    from automerge_tpu_torch.tpu.decode import leb128_scan, leb128_scan_device
 
-    rng = np.random.default_rng(11)
-    cases = [(1, 1, "sorted"), (13, 5, "sorted"), (37, 11, "out_of_range"),
-             (29, 7, "unsorted"), (1300, 300, "unsorted"),
-             (70_001, 9_999, "out_of_range")]
-    for n, v, ids in cases:
-        planes = rng.integers(0, 1 << 14, (n, 4)).astype(np.float32)
+def segsum_edge_inputs(rng):
+    """(label, planes, ids, V) of the LEB128 kernel's edge checks: N = 1,
+    N and V not multiples of 8, -1 and >= V ids scattered (unsorted),
+    unsorted ids, N > 512 with V > 128 (past the TPU kernel's tiles); and
+    the sorted pass's edges: N = 0, all ids -1, all >= V, leading -1s and
+    trailing >= V ids around sorted ids with gaps, descending pairs inside
+    the dropped runs, one run of 20,000 rows (planes < 800, so its sum
+    stays below 2^24), a descending pair only at the first and only at
+    the last pair, and 4,000 fully shuffled ids."""
+    def planes(n, high=1 << 14):
+        return rng.integers(0, high, (n, 4)).astype(np.float32)
+
+    out = []
+    for n, v, ids in [(1, 1, "sorted"), (13, 5, "sorted"),
+                      (37, 11, "out_of_range"), (29, 7, "unsorted"),
+                      (1300, 300, "unsorted"),
+                      (70_001, 9_999, "out_of_range")]:
         seg = np.sort(rng.integers(0, v, n)).astype(np.int32)
         if ids == "unsorted":
             rng.shuffle(seg)
         elif ids == "out_of_range":
             bad = rng.random(n) < 0.3
             seg[bad] = rng.choice([-1, v, v + 3, 10 * v], int(bad.sum()))
-        check_segsum(torch.from_numpy(planes).to(device),
-                     torch.from_numpy(seg).to(device), v)
-        log(f"  edge ok: leb128_segment_sum N={n} V={v} ids={ids}")
+        out.append((ids, planes(n), seg, v))
+    mid = np.sort(rng.choice(np.arange(3, 1900, 2), 700))
+    gaps = np.concatenate([np.full(50, -1), mid, [2000, 2000, 2003, 20_000]])
+    asc = np.sort(rng.integers(0, 500, 3000)).astype(np.int32)
+    first, last = asc.copy(), asc.copy()
+    first[0] = first[1] + 1
+    last[-1] = last[-2] - 1
+    shuffled = np.sort(rng.integers(0, 1000, 4000)).astype(np.int32)
+    rng.shuffle(shuffled)
+    out += [
+        ("empty", planes(0), np.zeros(0, np.int32), 5),
+        ("all_minus_one", planes(40), np.full(40, -1, np.int32), 7),
+        ("all_at_or_above_v", planes(40),
+         np.sort(rng.choice([7, 8, 70], 40)).astype(np.int32), 7),
+        ("edges_and_gaps", planes(len(gaps)), gaps.astype(np.int32), 2000),
+        ("dropped_runs_unordered", planes(11),
+         np.array([-1, -7, -2, 0, 0, 2, 5, 9, 6, 50, 6], np.int32), 6),
+        ("one_long_run", planes(20_000, 800), np.ones(20_000, np.int32), 3),
+        ("descending_first_pair", planes(3000), first, 520),
+        ("descending_last_pair", planes(3000), last, 500),
+        ("shuffled", planes(4000), shuffled, 1000),
+    ]
+    return out
+
+
+def leb_edge_checks(device):
+    """Bit-exact kernel-vs-plain checks of the LEB128 segmented sum at the
+    edge inputs of `segsum_edge_inputs`, each of which must take the pass
+    its ids call for (sorted or general); then streams of 1- to 8-byte
+    varints, unsigned and signed, through the device scan against the
+    NumPy pass."""
+    import torch
+
+    from automerge_tpu_torch.codecs import Encoder
+    from automerge_tpu_torch.tpu.decode import leb128_scan, leb128_scan_device
+
+    rng = np.random.default_rng(11)
+    paths = []
+    for label, planes, seg, v in segsum_edge_inputs(rng):
+        _, path = check_segsum(torch.from_numpy(planes).to(device),
+                               torch.from_numpy(seg).to(device), v)
+        want = "sorted" if sorted_ids(seg, v) else "general"
+        if path != want:
+            raise RuntimeError(f"leb128_segment_sum took the {path} pass on "
+                               f"{label} ids, want the {want} pass")
+        paths.append(path)
+        log(f"  edge ok: leb128_segment_sum N={len(seg)} V={v} ids={label} "
+            f"({path} pass)")
+    if "general" not in paths:
+        raise RuntimeError("no LEB128 edge case took the general pass")
     for signed in (False, True):
         enc = Encoder()
         for k in range(5000):
@@ -984,6 +1067,11 @@ def leb_edge_checks(device):
             else:
                 enc.append_uint53(val)
         data = np.frombuffer(enc.buffer, np.uint8)
+        planes, seg, nvar = segsum_inputs(torch.from_numpy(data.copy())
+                                          .to(device))
+        _, path = check_segsum(planes, seg, nvar)
+        if path != "sorted":
+            raise RuntimeError("a varint stream's ids took the general pass")
         want = leb128_scan(data)
         got = leb128_scan_device(torch.from_numpy(data.copy()).to(device))
         lengths = set(got[1].tolist())
@@ -992,7 +1080,49 @@ def leb_edge_checks(device):
             raise RuntimeError(f"device scan differs from the NumPy pass "
                                f"(signed={signed})")
         log(f"  edge ok: leb128_scan_device, {len(want[0])} varints of "
-            f"{min(lengths)}-{max(lengths)} bytes, signed={signed}")
+            f"{min(lengths)}-{max(lengths)} bytes, signed={signed} (kernel: "
+            f"{path} pass)")
+
+
+def segsum_inputs(data):
+    """(planes, ids, V) of kernel 3's launch for a uint8 card tensor of
+    varints, as ``tpu/decode.leb128_scan_device`` makes them: the scan
+    runs once with its call of the kernel recorded."""
+    from automerge_tpu_torch.tpu import leb_kernels as lk
+    from automerge_tpu_torch.tpu.decode import leb128_scan_device
+
+    rec = LargestLaunch(lk.leb128_segment_sum)
+    lk.leb128_segment_sum = rec
+    leb128_scan_device(data)
+    lk.leb128_segment_sum = rec.fn
+    return rec.args
+
+
+#: how many varints of phase 8's stream have 1..8 bytes, extrapolated from
+#: the same per-document traffic on the CPU (`run_scenario` at 16 docs x 32
+#: and `run_text_farm` at 1 doc x 6: 1,432,572 bytes in 1,344,392 varints,
+#: against phase 8's 1,428,125 in 1,340,192); phase 8 logs the true mix
+PHASE8_LENGTH_MIX = (1_256_212, 88_180, 0, 0, 0, 0, 0, 0)
+#: varints in phase 8's stream at the defaults
+PHASE8_VARINTS = 1_340_192
+
+
+def synthetic_varint_stream(num_varints, seed=5):
+    """A stream of `num_varints` unsigned varints, made from `seed`, whose
+    byte lengths follow ``PHASE8_LENGTH_MIX`` (phase 8's stream): the
+    inputs on which chip_compare.py times two checkouts' kernel 3 alike."""
+    rng = np.random.default_rng(seed)
+    mix = np.asarray(PHASE8_LENGTH_MIX, np.float64)
+    lengths = rng.choice(np.arange(1, 9), num_varints, p=mix / mix.sum())
+    # a k-byte varint: k - 1 bytes with the continuation bit, then one
+    # without; the last byte is nonzero so the encoding is minimal
+    nbytes = int(lengths.sum())
+    data = rng.integers(0, 0x80, nbytes, dtype=np.uint8) | 0x80
+    ends = np.cumsum(lengths) - 1
+    data[ends] = rng.integers(1, 0x80, num_varints, dtype=np.uint8)
+    data[ends[lengths == 1]] = rng.integers(0, 0x80, int((lengths == 1).sum()),
+                                            dtype=np.uint8)
+    return data
 
 
 def segsum_bound(planes, num_segments):
@@ -1001,6 +1131,95 @@ def segsum_bound(planes, num_segments):
     ops = n * p  # one add per input cell
     return max(nbytes / HBM_BYTES_PER_S, ops / NON_TENSOR_OPS_PER_S) * 1e3, \
         nbytes, ops
+
+
+def leb_timings(lk, planes, seg_ids, num_segments, floor_ms, seed=3):
+    """Timing fields (`kernel_times`, and `_time_cold` as ``cold_ms``),
+    plain time, ``index_add_`` time, bound and shape of kernel 3 of module
+    `lk` (this checkout's, or another checkout's in chip_compare.py) at
+    one launch. ``unsorted_ms`` is the graph timing of the same rows and
+    ids shuffled together (the same sums; held bit-exact first), which
+    takes the general pass; ``copy_ms`` a yardstick: one device copy of
+    the planes, the bulk of the bytes read."""
+    import torch
+
+    v = num_segments
+    bound, nbytes, _ = segsum_bound(planes, v)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        planes.shape[0])).to(planes.device)
+    sh_planes, sh_seg = planes[perm].contiguous(), seg_ids[perm].contiguous()
+    got = lk.leb128_segment_sum(sh_planes, sh_seg, v)
+    want = lk.leb128_segment_sum_plain(planes, seg_ids, v)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise RuntimeError("leb128_segment_sum disagrees with its plain "
+                           "version on shuffled rows and ids")
+    copy = torch.empty_like(planes)
+
+    def fn():
+        return lk.leb128_segment_sum(planes, seg_ids, v)
+
+    return {
+        **kernel_times(fn, "leb128_", floor_ms),
+        "cold_ms": _time_cold(fn),
+        "unsorted_ms": _time_graph(
+            lambda: lk.leb128_segment_sum(sh_planes, sh_seg, v)),
+        "copy_ms": _time_graph(lambda: copy.copy_(planes)),
+        "plain_ms": _time_cuda(
+            lambda: lk.leb128_segment_sum_plain(planes, seg_ids, v),
+            iters=10),
+        "bound_ms": bound,
+        "library_ms": _time_cuda(
+            lambda: torch.zeros(v, planes.shape[1], device=planes.device)
+            .index_add_(0, seg_ids, planes)),
+        "shape": {"N": planes.shape[0], "P": planes.shape[1], "V": v,
+                  "bytes": nbytes}}
+
+
+def scan_breakdown(data):
+    """One torch.profiler trace of ``leb128_scan_device`` on a uint8 card
+    tensor, for the record: the host clock around the call (ending in a
+    synchronise), the device time of kernel 3's kernels and of every
+    other device op (kernels, copies, fills), and the host ops that wait
+    on the device or copy back (``item``, ``nonzero``, the readback
+    copies) with their CPU time. None, with the reason logged, when the
+    profiler fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from automerge_tpu_torch.tpu.decode import leb128_scan_device
+
+    leb128_scan_device(data)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            leb128_scan_device(data)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+    except Exception as exc:  # noqa: BLE001 - a record, not a check
+        log(f"  scan breakdown: the profiler failed: {exc!r}")
+        return None
+    out = {"wall_ms": wall_ms, "kernel_ms": 0.0, "other_device_ms": 0.0,
+           "device_ops": 0, "host": {}}
+    waits = ("aten::_local_scalar_dense", "aten::nonzero", "aten::_to_copy",
+             "cudaStreamSynchronize", "cudaMemcpyAsync",
+             "cudaDeviceSynchronize")
+    for evt in events:
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            key = "kernel_ms" if "leb128_" in evt.key else "other_device_ms"
+            out[key] += dev_us / 1e3
+            out["device_ops"] += evt.count
+        elif evt.key in waits:
+            out["host"][evt.key] = {"calls": evt.count,
+                                    "cpu_ms": evt.cpu_time_total / 1e3}
+    busy = out["kernel_ms"] + out["other_device_ms"]
+    out["device_idle_share"] = 1.0 - busy / wall_ms if wall_ms > 0 else None
+    return out
 
 
 def check_text_samples(texts, kept):
@@ -1344,29 +1563,35 @@ def main(argv=None) -> int:
     if launches8["leb128_segment_sum"] <= 0:
         raise RuntimeError("the device scan never launched leb128_segment_sum")
     planes, seg_ids, nvar = rec_seg.args
-    seg_err = check_segsum(planes, seg_ids, nvar)
-    s_bound, s_bytes, _ = segsum_bound(planes, nvar)
+    seg_err, seg_path = check_segsum(planes, seg_ids, nvar)
+    if seg_path != "sorted":
+        raise RuntimeError("the scan's ids took kernel 3's general pass")
+    mix = np.bincount(want[1], minlength=9)[1:].tolist()
     log(f"phase 8 device LEB128 scan: {len(buffers)} change buffers, "
-        f"{data.shape[0]} varint bytes, {nvar} varints; stream built in "
-        f"{build_s:.3f} s; scan {scan_s * 1e3:.1f} ms (host clock, upload "
-        f"to readback); equal to the NumPy pass; launches {launches8}")
+        f"{data.shape[0]} varint bytes, {nvar} varints (by length 1-8: "
+        f"{mix}); stream built in {build_s:.3f} s; scan "
+        f"{scan_s * 1e3:.1f} ms (host clock, upload to readback); equal to "
+        f"the NumPy pass; launches {launches8}; kernel 3 took the "
+        f"{seg_path} pass")
+    breakdown = scan_breakdown(torch.from_numpy(data.copy()).to(device))
+    if breakdown is not None:
+        log(f"  scan breakdown (torch.profiler, one call): "
+            f"{json.dumps(breakdown)}")
+    seg_row = leb_timings(lk, planes, seg_ids, nvar, floor_ms)
     table["kernels"].append(
         {"name": "leb128_segment_sum", "route": "cuda",
          "source": "automerge_tpu_torch/csrc/leb128.cu",
          "replaces": "automerge_tpu/tpu/pallas_kernels.py:222",
          "launches": launches8["leb128_segment_sum"],
-         "max_abs_err": seg_err,
-         **kernel_times(lambda: lk.leb128_segment_sum(planes, seg_ids, nvar),
-                        "leb128_segment_sum", floor_ms),
-         "plain_ms": _time_cuda(
-             lambda: lk.leb128_segment_sum_plain(planes, seg_ids, nvar),
-             iters=10),
-         "bound_ms": s_bound, "bound_by": "bytes",
-         "library_ms": _time_cuda(
-             lambda: torch.zeros(nvar, 4, device=device).index_add_(
-                 0, seg_ids, planes)),
-         "shape": {"N": planes.shape[0], "P": planes.shape[1], "V": nvar,
-                   "bytes": s_bytes}})
+         "max_abs_err": seg_err, "path": seg_path, **seg_row,
+         "bound_by": "bytes"})
+    log(f"  leb128_segment_sum {seg_row['shape']}: ms {seg_row['ms']:.5f} "
+        f"(device, warm), cold_ms {seg_row['cold_ms']:.5f}, unsorted_ms "
+        f"{seg_row['unsorted_ms']:.5f}, call_ms {seg_row['call_ms']:.5f}, "
+        f"copy_ms {seg_row['copy_ms']:.5f}, profiler_ms "
+        f"{seg_row['profiler_ms']}, bound_ms {seg_row['bound_ms']:.6f}, "
+        f"library_ms {seg_row['library_ms']:.5f}, plain_ms "
+        f"{seg_row['plain_ms']:.4f}")
 
     # 9. card vs CPU: the text farms at 2 docs and the text engine at 16
     t0 = time.perf_counter()
