@@ -1,5 +1,5 @@
-"""automerge_tpu_torch: the map/counter merge farm and its batched Bloom
-sync in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
+"""automerge_tpu_torch: the document merge farm and its batched sync in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of the JAX package ``automerge_tpu``, which stays beside it as the
 reference. This package imports neither JAX nor anything of
@@ -11,8 +11,23 @@ Entry points run on the card unless the caller asks for the CPU
 
     farm = TorchDocFarm(num_docs=1024)          # on the card
     sync = SyncFarm(farm)
+    session = sync.make_session(0)              # one supervised channel
+
+A single-document peer runs over ``backend`` with ``SyncSession`` and
+``BackendDriver``; ``encode_sync_state``/``decode_sync_state`` persist a
+channel's sync state.
 """
+from .sync import decode_sync_state, encode_sync_state
+from .sync_session import BackendDriver, SessionConfig, SyncSession
 from .tpu.farm import TorchDocFarm
 from .tpu.sync_farm import SyncFarm
 
-__all__ = ["SyncFarm", "TorchDocFarm"]
+__all__ = [
+    "BackendDriver",
+    "SessionConfig",
+    "SyncFarm",
+    "SyncSession",
+    "TorchDocFarm",
+    "decode_sync_state",
+    "encode_sync_state",
+]

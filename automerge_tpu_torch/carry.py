@@ -9,7 +9,10 @@ types: the JAX farm's interned values are its own ``ValueCell`` /
 document's embedded sequential walk its own ``OpSet``. This module converts
 them by field (duck typing, so nothing of the JAX package is imported); a
 walk cannot cross, so it is rebuilt here as this package's ``OpSet`` from
-the carried change log and queue, as the farm bootstraps one.
+the carried change log and queue, as the farm bootstraps one. That holds
+for a document in the JAX farm's degraded mode too (served by its walk
+after a failed device dispatch): its walk is rebuilt the same way, and it
+stays degraded here.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ _ROW_COLUMNS = ("key", "op", "action", "value", "pred", "overwritten")
 _CARRIED = (
     "object_meta", "clock", "heads", "queue", "changes", "change_index",
     "hashes_by_actor", "deps_by_hash", "dependents", "max_op",
-    "counter_ops", "inc_max", "starved", "children", "fault_count",
+    "counter_ops", "inc_max", "starved", "children", "degraded", "fault_count",
     "num_elems", "elem_index", "elem_ids", "elem_object",
 )
 
@@ -38,15 +41,7 @@ def _convert_value(cell):
 
 def doc_from_jax_export(export: dict) -> dict:
     """The dict ``TorchDocFarm.adopt_doc`` takes, from the dict
-    ``TpuDocFarm.export_doc`` returned. Refuses a document in the JAX
-    farm's degraded mode (served by its walk after a failed device
-    dispatch, with device rows it no longer trusts): this package has no
-    degraded mode yet."""
-    if export.get("degraded", False):
-        raise ValueError(
-            "document is in the JAX farm's degraded mode, which "
-            "automerge_tpu_torch has not ported yet"
-        )
+    ``TpuDocFarm.export_doc`` returned."""
     rows = export["rows"]
     out = {
         "rows": {

@@ -152,8 +152,8 @@ class QuarantinedError(AutomergeError):
 class NotPortedError(AutomergeError, NotImplementedError):
     """The request needs a module of the JAX package that this package has
     not ported yet. ``slice_name`` names that module (for example
-    ``"opset"`` for list/text documents, ``"sync_v2"`` for range-based
-    sync); the call raises before anything commits."""
+    ``"store"`` for the persistence tier); the call raises before anything
+    commits."""
 
     kind = "not_ported"
 

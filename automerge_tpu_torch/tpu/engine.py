@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..obs.metrics import get_metrics
+from ..testing.faults import fire as _fault_point
 
 PAD_KEY = 2**31 - 1  # int32 max
 ACTOR_BITS = 20
@@ -339,6 +340,7 @@ class BatchedMapEngine:
         batch rows belong to (None = all docs); rows past ``len(docs)`` are
         pow2 padding. `counts` gives each doc's real (non-pad) row count —
         passed by the farm, derived from the batch otherwise."""
+        _fault_point("engine.apply_batch", changes=changes)
         docs = (
             list(range(self.num_docs)) if docs is None
             else [int(d) for d in docs]
@@ -410,6 +412,7 @@ class BatchedMapEngine:
         per-row (key, op, visible, winner, value_total) tensors of shape
         [len(docs), W], W = pow2 bucket of the largest requested doc.
         Memoised per (state version, doc subset, actor-rank table)."""
+        _fault_point("engine.visible_state")
         docs_t = (
             tuple(range(self.num_docs)) if docs is None
             else tuple(int(d) for d in docs)

@@ -42,9 +42,8 @@ byte-exact by construction. The device engine still carries every doc's
 rows (list rows included: element forests feed the batched RGA rank in
 rga.py) for whole-document reads, conflict winners and counter totals.
 
-Not in this package yet (each raises ``NotPortedError`` naming its slice,
-before anything commits): the degraded walk that serves documents after a
-failed device dispatch, and the persistence tier (``attach_store``).
+Not in this package yet: the persistence tier (``attach_store`` raises
+``NotPortedError`` naming its slice, before anything commits).
 
 Fault isolation: under the default ``isolation="doc"`` every document is
 its own fault domain — a poisoned delivery (corrupt bytes, causal
@@ -52,7 +51,16 @@ violations, packing overflows) quarantines only that doc, with its host
 state rolled back to a pre-call snapshot and the failure classified by the
 error taxonomy (errors.py) in the call's outcome report. Repeat offenders
 enter a traffic-shedding quarantine set (release_quarantine restores
-them). ``isolation="batch"`` keeps the all-or-nothing contract.
+them), and a failing device dispatch degrades to the sequential reference
+walk after bisecting out the poison docs (``degraded``). The bisection
+probes run on the device, so they isolate a fault that a document's rows
+raise in a call (the ``farm.device_dispatch`` and ``engine.apply_batch``
+fault points of testing/faults.py inject one). A CUDA fault such as an
+illegal address poisons the process's CUDA context instead: every later
+probe fails too, so nobody is blamed and every doc of the call is served
+by the walk, but the device stays unusable for the rest of the process
+(and CUDA may report such a fault only at a later synchronising call,
+outside the dispatch). ``isolation="batch"`` keeps the all-or-nothing contract.
 """
 from __future__ import annotations
 
@@ -69,13 +77,16 @@ from .decode import warm_decode_cache
 from ..common import utf16_key
 from ..errors import (
     CausalityError,
+    DeviceFaultError,
     NotPortedError,
     PackingLimitError,
     QuarantinedError,
     error_kind,
 )
+from ..obs.flight import get_flight
 from ..obs.metrics import get_metrics
 from ..opset import OpSet, append_edit
+from ..testing.faults import fire as _fault_point
 from .engine import (
     ACTION_DEL,
     ACTION_INC,
@@ -189,6 +200,18 @@ _M_OCCUPANCY = _METRICS.histogram(
 _M_WALKS = _METRICS.counter(
     "farm.exact.walks", "documents served by the embedded reference walk"
 )
+_M_FB_CALLS = _METRICS.counter(
+    "farm.fallback.calls",
+    "apply_changes calls that lost the batched device path mid-dispatch",
+)
+_M_FB_DOCS = _METRICS.counter(
+    "farm.fallback.docs",
+    "documents served by the sequential reference walk after a device failure",
+)
+_M_BISECT = _METRICS.counter(
+    "farm.bisect.rounds",
+    "bisection probes run to isolate device-poison documents",
+)
 _M_ABORTS = _METRICS.counter(
     "farm.prevalidation.aborts",
     "apply_changes calls rejected batch-wide by the packing-limit pre-pass",
@@ -258,6 +281,10 @@ _M_READBACK_MS = _METRICS.histogram(
     "farm.readback.latency_ms",
     "host-measured scoped visibility readback latency",
 )
+# flight-recorder hook (obs/flight.py): quarantine transitions and device
+# faults leave timeline events (with the offending change hashes) and
+# auto-dump the ring for postmortems.
+_FLIGHT = get_flight()
 
 # One counter family for every per-doc quarantine cause, dimensioned by the
 # taxonomy's error_kind (decode/checksum/causality/packing/device/...): the
@@ -298,9 +325,11 @@ class DocOutcome(NamedTuple):
     error: BaseException | None = None
     error_kind: str | None = None     # taxonomy dimension (errors.error_kind)
     offending_hashes: tuple = ()      # change hashes implicated, if known
+    fallback: bool = False            # served by the sequential walk
 
 
 _APPLIED = DocOutcome("applied")
+_APPLIED_FALLBACK = DocOutcome("applied", fallback=True)
 
 
 class FarmApplyResult(list):
@@ -320,8 +349,9 @@ class FarmApplyResult(list):
 
     @property
     def applied(self):
-        """{doc index: DocOutcome} of the docs whose delivery committed —
-        the symmetric accessor to ``quarantined``."""
+        """{doc index: DocOutcome} of the docs whose delivery committed
+        (fallback-walk-served docs included) — the symmetric accessor to
+        ``quarantined``."""
         return {
             d: o for d, o in enumerate(self.outcomes) if o.status == "applied"
         }
@@ -467,10 +497,12 @@ class TorchDocFarm:
         # for that doc's incremental patch stream from then on
         self.exact: list[OpSet | None] = [None] * num_docs
         # fault-isolation state (isolation="doc"): consecutive failure
-        # streaks and the quarantine set (doc -> last cause)
+        # streaks, the quarantine set (doc -> last cause), and docs pinned
+        # to the sequential walk after a device-path failure
         self.quarantine_threshold = quarantine_threshold
         self.fault_counts = [0] * num_docs
         self.quarantine: dict[int, BaseException] = {}
+        self.degraded: set[int] = set()
         # host mirror of the device op table (incremental readback, README
         # "Performance"): per doc, the live rows in exact device order —
         # the host produced every row and the merge insert position is
@@ -1206,22 +1238,21 @@ class TorchDocFarm:
           phase) and its outcome reports ``quarantined(error,
           offending_hashes)``. Docs failing `quarantine_threshold`
           consecutive deliveries enter the quarantine set and shed traffic
-          until `release_quarantine`.
+          until `release_quarantine`. If the batched device program itself
+          fails mid-dispatch, the batch is bisected on the device to
+          isolate the poison doc(s) and the survivors are served through
+          the sequential reference walk (degraded mode), so the call still
+          returns patches.
         - ``"batch"``: the all-or-nothing contract — the first failure
           raises out of the call (prevalidation aborts the whole batch
           before anything commits).
 
-        A failed device dispatch under ``"doc"`` rolls every doc of the call
-        back and raises ``NotPortedError``: the JAX farm bisects and serves
-        the survivors through the degraded walk, which this package has not
-        ported.
-
         Phases (recorded on the ambient PhaseProfile): decode ->
         prevalidate -> walk (docs with list/text objects) -> gate_verdicts ->
         transcode_columns -> gate+transcode (scalar oracle) -> pack ->
-        device_dispatch -> visibility (host mirror merge + scoped device
-        readback of stale spans) -> patch_assembly (vectorized over the
-        mirror)."""
+        device_dispatch -> fallback_walk (only after a failed dispatch) ->
+        visibility (host mirror merge + scoped device readback of stale
+        spans) -> patch_assembly (vectorized over the mirror)."""
         from ..profiling import get_profile
 
         if isolation not in ("doc", "batch"):
@@ -1240,6 +1271,7 @@ class TorchDocFarm:
         exact_patches: dict[int, dict] = {}
         failures: dict[int, BaseException] = {}
         snapshots: dict[int, dict] = {}
+        fallback_docs: set[int] = set()
         attempted = [d for d in range(self.num_docs) if per_doc_buffers[d]]
 
         def quarantine(d, exc):
@@ -1275,6 +1307,16 @@ class TorchDocFarm:
                 self.quarantine[d] = exc
                 _M_Q_ENTERED.inc()
                 _M_Q_ACTIVE.set(len(self.quarantine))
+                if _FLIGHT.enabled:
+                    _FLIGHT.record(
+                        "farm.quarantine.enter", doc=d,
+                        kind=error_kind(exc),
+                        offending_hashes=list(
+                            getattr(exc, "offending_hashes", ())
+                        ),
+                        failures=self.fault_counts[d],
+                    )
+                    _FLIGHT.trigger("farm.quarantine", doc=d)
 
         # quarantined docs shed their traffic before any work happens
         if doc_mode and self.quarantine:
@@ -1303,6 +1345,7 @@ class TorchDocFarm:
             for d, buffers in enumerate(per_doc_buffers):
                 decoded = []
                 try:
+                    _fault_point("farm.decode", doc=d, buffers=buffers)
                     for buffer in buffers:
                         # LRU-backed: one parse per distinct change however
                         # many documents it is gossiped to (shallow copy per
@@ -1463,6 +1506,7 @@ class TorchDocFarm:
         # neither device traffic nor kernel work. Columnar-gated docs
         # already carry their dense row arrays (cached column blocks);
         # scalar-gated docs densify their row lists here.
+        device_failed = False
         for d, rows in enumerate(per_doc_rows):
             if rows and per_doc_arrays[d] is None:
                 per_doc_arrays[d] = np.asarray(rows, np.int64)
@@ -1488,6 +1532,7 @@ class TorchDocFarm:
                 )
             with prof.phase("device_dispatch"):
                 try:
+                    _fault_point("farm.device_dispatch", docs=active)
                     dispatch_t0 = time.perf_counter()
                     self.engine.apply_batch(batch, docs=active, counts=counts)
                     if _METRICS.enabled:
@@ -1497,22 +1542,51 @@ class TorchDocFarm:
                 except Exception as exc:
                     if not doc_mode:
                         raise
-                    # the JAX farm bisects and serves survivors through the
-                    # degraded walk; without it, roll every doc of this
-                    # call back (the engine already returned its pages;
-                    # walks that committed the delivery rebuild lazily) and
-                    # refuse the call
-                    for d in list(snapshots):
-                        self._restore_doc(d, snapshots.pop(d))
-                        self.exact[d] = None
-                    raise NotPortedError(
-                        "opset", "serving documents after a failed device "
-                        "dispatch"
-                    ) from exc
+                    # Degraded mode: the batched device path is gone for
+                    # this call (the engine handed its fresh pages back).
+                    # Bisect to find the doc(s) whose rows poison the
+                    # program; quarantine them (host state rolled back) and
+                    # serve every survivor through the sequential
+                    # reference walk below.
+                    device_failed = True
+                    _M_FB_CALLS.inc()
+                    if _FLIGHT.enabled:
+                        _FLIGHT.record("farm.device_fault",
+                                       docs=list(active), error=str(exc))
+                        _FLIGHT.trigger("farm.device_fault")
+                    poison = self._bisect_device_faults(per_doc_arrays, active)
+                    for d in sorted(poison):
+                        quarantine(d, DeviceFaultError(
+                            f"batched device dispatch fails with document "
+                            f"{d}'s rows in the batch: {exc}"
+                        ))
+                    fallback_docs.update(d for d in active if d not in poison)
+
+        if device_failed:
+            with prof.phase("fallback_walk"):
+                for d in sorted(fallback_docs):
+                    try:
+                        if d in exact_patches:
+                            # the walk already produced this call's patch;
+                            # just pin the doc to walk-served mode
+                            self.degraded.add(d)
+                        else:
+                            exact_patches[d] = self._fallback_walk(
+                                d,
+                                snapshots.get(d),
+                                [c["buffer"] for c in per_doc_decoded[d]],
+                                is_local,
+                            )
+                        _M_FB_DOCS.inc()
+                    except Exception as exc:
+                        quarantine(d, exc)
 
         emit_info: dict[int, tuple] = {}
         with prof.phase("visibility"):
-            if width > 0:
+            # after a device failure nothing may touch the device again
+            # this call: every doc with applied rows is fallback- or
+            # quarantine-served, so the other docs' patches need no read
+            if width > 0 and not device_failed:
                 # replicate the committed merge on the host mirror (exact
                 # device row order, no transfer), then refresh the stale
                 # (doc, slot) visibility spans with one scoped gather.
@@ -1562,7 +1636,9 @@ class TorchDocFarm:
                     continue
                 if d in attempted:
                     self.fault_counts[d] = 0  # a clean delivery ends the streak
-                outcomes.append(_APPLIED)
+                outcomes.append(
+                    _APPLIED_FALLBACK if d in fallback_docs else _APPLIED
+                )
                 if d in exact_patches:
                     patches.append(exact_patches[d])
                     continue
@@ -1724,6 +1800,61 @@ class TorchDocFarm:
             keys, ops, actions, values, preds, self.engine.device
         ), counts
 
+    def _bisect_device_faults(self, per_doc_arrays, active):
+        """Isolates the doc(s) whose rows crash the batched device program
+        by bisection: each probe runs a subset's rows through the merge on
+        the device on a throwaway basis (engine.probe_apply — no scatter,
+        the slab is never advanced). Returns the poison doc set;
+        `farm.bisect.rounds` counts probes."""
+
+        def probe_ok(group):
+            _M_BISECT.inc()
+            try:
+                _fault_point("farm.device_dispatch", docs=tuple(group))
+                batch, counts = self._pack_subset(per_doc_arrays, group)
+                self.engine.probe_apply(batch, group, counts)
+                return True
+            except Exception:
+                return False
+
+        poison = set()
+        stack = [sorted(active)]
+        while stack:
+            group = stack.pop()
+            if probe_ok(group):
+                continue
+            if len(group) == 1:
+                poison.add(group[0])
+                continue
+            mid = len(group) // 2
+            stack.append(group[:mid])
+            stack.append(group[mid:])
+        if poison == set(active):
+            # every doc "poison" means the device itself is down, not the
+            # data: blame nobody and serve the whole batch sequentially
+            return set()
+        return poison
+
+    def _fallback_walk(self, d, snap, delivered_buffers, is_local):
+        """Serves one device-failure survivor through the sequential
+        reference walk: replays the doc's pre-call committed log and queue
+        into a fresh OpSet, applies this call's delivery for the patch, and
+        pins the doc to walk-served (degraded) mode from now on — its
+        device rows are stale after the lost dispatch, so the embedded
+        walk becomes authoritative for patches and whole-doc reads
+        (get_patch)."""
+        committed = (
+            self.changes[d][: snap["changes_len"]]
+            if snap is not None
+            else self.changes[d]
+        )
+        queued = snap["queue"] if snap is not None else self.queue[d]
+        opset = replay_walk(committed, queued)
+        patch = opset.apply_changes(list(delivered_buffers), is_local)
+        self.exact[d] = opset
+        self.degraded.add(d)
+        return patch
+
     def release_quarantine(self, doc: int | None = None):
         """Returns quarantined doc(s) to service (all of them when `doc` is
         None) and resets their failure streaks. Returns the released doc
@@ -1737,6 +1868,8 @@ class TorchDocFarm:
                 released.append(d)
                 _M_Q_RELEASED.inc()
         _M_Q_ACTIVE.set(len(self.quarantine))
+        if released and _FLIGHT.enabled:
+            _FLIGHT.record("farm.quarantine.release", docs=released)
         return released
 
     # ------------------------------------------------------------------ #
@@ -1801,6 +1934,7 @@ class TorchDocFarm:
             "elem_ids": list(self.elem_ids[d]),
             "elem_object": list(self.elem_object[d]),
             "exact": self.exact[d],
+            "degraded": d in self.degraded,
             "fault_count": self.fault_counts[d],
             "quarantine": self.quarantine.get(d),
         }
@@ -1908,6 +2042,10 @@ class TorchDocFarm:
         self.elem_ids[d] = export["elem_ids"]
         self.elem_object[d] = export["elem_object"]
         self.exact[d] = export["exact"]
+        if export["degraded"]:
+            self.degraded.add(d)
+        else:
+            self.degraded.discard(d)
         self.fault_counts[d] = export["fault_count"]
         if export["quarantine"] is not None:
             self.quarantine[d] = export["quarantine"]
@@ -1951,6 +2089,7 @@ class TorchDocFarm:
         self.exact[d] = None
         self.fault_counts[d] = 0
         self.quarantine.pop(d, None)
+        self.degraded.discard(d)
         self._vis_mkey[d] = np.empty(0, np.int64)
         self._vis_key[d] = np.empty(0, np.int32)
         self._vis_op[d] = np.empty(0, np.int64)
@@ -2560,6 +2699,10 @@ class TorchDocFarm:
     # whole-document patch (getPatch, new.js:2052)
 
     def get_patch(self, d: int):
+        # degraded docs lost device rows to a failed dispatch; their
+        # embedded walk is authoritative for whole-doc reads too
+        if d in self.degraded and self.exact[d] is not None:
+            return self.exact[d].get_patch()
         # whole-doc reads ride the same mirror: only this doc's stale
         # spans (if any) cross the device boundary
         self._refresh_visibility([d])

@@ -15,9 +15,12 @@ unchanged — see sync.py) for many (document, peer) channels at once:
   through the farm's single batched applyChanges, and advances per-channel
   sharedHeads exactly like receiveSyncMessage (sync.js:420).
 
-Channels on sync v2 (range-based reconciliation) need the ``sync_v2`` and
-``fingerprint`` modules, which this package has not ported yet: asking for
-them raises ``NotPortedError`` before any state changes.
+Channels negotiated onto sync v2 (range-based reconciliation, sync_v2.py)
+ride the same batched calls via the ``protocols`` parameter: every v2
+channel's fingerprint queries for the round — inbound-range checks, median
+splits, fresh probes — concatenate into ONE device reduction
+(tpu/fingerprint.FingerprintIndex), and inbound payloads route on their
+leading type byte, so one sweep mixes v1 and v2 channels freely.
 
 Messages are byte-identical to the sequential protocol's (asserted by
 the JAX package's tests against its sequential protocol, and this
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from ..columnar import decode_change_meta_cached
-from ..errors import NotPortedError, SyncProtocolError
+from ..errors import SyncProtocolError
 from ..obs.metrics import get_metrics
 from ..sync import (
     BITS_PER_ENTRY,
@@ -48,6 +51,14 @@ from ..sync import (
     init_sync_state,
     _advance_heads,
 )
+from ..sync_v2 import (
+    MESSAGE_TYPE_SYNC_V2,
+    decode_sync_message_v2,
+    finish_generate_v2,
+    plan_generate_v2,
+    post_receive_v2,
+)
+from .fingerprint import FingerprintIndex
 from .sync_batch import (
     WORD_BITS,
     build_filters,
@@ -72,15 +83,13 @@ _M_BLOOM_PROBES = _METRICS.counter("sync.bloom.probes")
 _M_BLOOM_HITS = _METRICS.counter("sync.bloom.hits")
 _M_BLOOM_FP = _METRICS.counter("sync.bloom.false_positives")
 _M_REJECTED = _METRICS.counter("sync.messages.rejected")
+_M2_MSGS_RECV = _METRICS.counter("sync.v2.messages.received")
+_M2_REJECTED = _METRICS.counter("sync.v2.messages.rejected")
 _M_SHED_QUARANTINED = _METRICS.counter(
     "sync.messages.shed_quarantined",
     "sync channels skipped in generate_messages because the doc farm has "
     "their document quarantined (release_quarantine restores them)",
 )
-
-
-#: leading byte of a sync v2 frame (the JAX package's sync_v2.py)
-MESSAGE_TYPE_SYNC_V2 = 0x45
 
 
 def _pow2(n: int) -> int:
@@ -134,10 +143,38 @@ class SyncFarm:
         # outcome report of the most recent receive_messages farm dispatch
         # (a FarmApplyResult, or None when the call applied no changes)
         self.last_apply = None
+        # per-doc range-fingerprint indexes for v2 channels, refreshed
+        # lazily from the farm's change graph (cheap count-compare no-op
+        # once current)
+        self.fingerprints = FingerprintIndex(self.device)
+
+    def _v2_view(self, d):
+        """The doc's fingerprint view, refreshed against the farm."""
+        self.fingerprints.sync_from_farm(self.farm, d)
+        return self.fingerprints.view(d)
 
     @staticmethod
     def init_state():
         return init_sync_state()
+
+    def make_session(self, d, *, clock=None, rng=None, config=None,
+                     state=None):
+        """A supervised ``SyncSession`` (sync_session.py) for document
+        ``d``'s channel to one peer: seq/ack framing, retransmission with
+        backoff, peer-restart detection and the convergence watchdog, over
+        this farm's batched generate/receive."""
+        from ..sync_session import FarmDriver, SyncSession
+
+        return SyncSession(FarmDriver(self, d), clock=clock, rng=rng,
+                           config=config, state=state)
+
+    def restore_session(self, d, blob, *, clock=None, rng=None, config=None):
+        """Resumes a persisted supervised channel (``SyncSession.save()``)
+        for document ``d``."""
+        from ..sync_session import FarmDriver, SyncSession
+
+        return SyncSession.restore(blob, FarmDriver(self, d), clock=clock,
+                                   rng=rng, config=config)
 
     # -------------------------------------------------------------- #
     # generate (sync.js:327, batched)
@@ -149,25 +186,47 @@ class SyncFarm:
     def generate_messages(self, channels, protocols=None):
         """channels: [(doc, sync_state)]. Returns [(new_state, bytes|None)]
         in channel order. All Bloom builds and queries run as one kernel
-        launch each. ``protocols``, when given, aligns with ``channels``;
-        an entry of ``"v2"`` needs the sync v2 slice and raises
-        ``NotPortedError`` before any channel is processed."""
-        if protocols is not None and "v2" in protocols:
-            raise NotPortedError("sync_v2", "a sync v2 channel")
+        launch each; all v2 channels' fingerprint queries run as ONE
+        batched reduction.
+
+        ``protocols``, when given, aligns with ``channels``: an entry of
+        ``"v2"`` routes that channel through range-based reconciliation
+        (sync_v2), anything else through the Bloom protocol. One sweep
+        mixes both freely."""
         n = len(channels)
         plans = []
+        v2_queries = []  # (doc, lo, hi) across all v2 channels this sweep
         # a doc quarantined by the farm's per-doc isolation must not be
         # offered over sync: its host state is the pre-fault snapshot, so
         # advertising heads/filters from it would invite deliveries the
         # farm will shed anyway. The channel resumes after
         # release_quarantine.
         quarantined = self.farm.quarantine
-        for d, state in channels:
+        for i, (d, state) in enumerate(channels):
             if d in quarantined:
                 plans.append({"shed": True})
                 _M_SHED_QUARANTINED.inc()
                 continue
+            if protocols is not None and protocols[i] == "v2":
+                view = self._v2_view(d)
+                our_heads = self.farm.get_heads(d)
+                our_need = self.farm.get_missing_deps(
+                    d, state.get("theirHeads") or []
+                )
+                v2_plan, queries = plan_generate_v2(state, view, our_heads)
+                plans.append({
+                    "v2": True, "plan": v2_plan, "q0": len(v2_queries),
+                    "nq": len(queries), "our_heads": our_heads,
+                    "our_need": our_need,
+                })
+                v2_queries.extend((d, lo, hi) for lo, hi in queries)
+                continue
             plans.append(self._plan_generate(d, state))
+
+        # all v2 channels' fingerprints — inbound-range checks, median
+        # splits, fresh probes — resolve in one pow2-bucketed device
+        # reduction; each channel then slices its contiguous span back out
+        v2_fps = self.fingerprints.fingerprint_ranges(v2_queries)
 
         # batched `have` filter construction, pow2-padded in batch and
         # width (the padding is masked: zero-count rows serialise to empty
@@ -237,10 +296,17 @@ class SyncFarm:
                 )
                 _M_BLOOM_HITS.inc(total_hits)
 
-        results = [
-            self._finish_generate(d, state, plan)
-            for (d, state), plan in zip(channels, plans)
-        ]
+        results = []
+        for (d, state), plan in zip(channels, plans):
+            if plan.get("v2"):
+                fps = v2_fps[plan["q0"]: plan["q0"] + plan["nq"]]
+                results.append(finish_generate_v2(
+                    state, plan["plan"], fps,
+                    lambda h, d=d: self.farm.get_change_by_hash(d, h),
+                    plan["our_heads"], plan["our_need"],
+                ))
+                continue
+            results.append(self._finish_generate(d, state, plan))
         assert len(results) == n
         return results
 
@@ -431,32 +497,46 @@ class SyncFarm:
         preserve per-message head accounting). Returns
         [(new_state, patch|None)] in channel order.
 
-        A sync v2 frame (leading byte ``MESSAGE_TYPE_SYNC_V2``) needs the
-        sync v2 slice: it raises ``NotPortedError`` before any channel is
-        applied. ``protocols`` is accepted for symmetry with
-        ``generate_messages``; routing is by payload type byte.
+        Payloads route on their leading type byte — a sync v2 frame
+        (``MESSAGE_TYPE_SYNC_V2``) decodes and post-processes through the
+        range-reconciliation path, anything else through the reference
+        protocol — so mixed-protocol sweeps and mid-session transitions
+        need no caller-side branching. ``protocols`` is accepted for
+        symmetry with ``generate_messages`` and forward compatibility;
+        routing itself is self-describing.
 
         One bad peer must not abort the batched round: a channel whose
         message fails to decode is rejected in place — its result is
-        ``(unchanged state, None)``, counted on ``sync.messages.rejected`` —
-        and a channel whose changes poison its document is handled by the
-        farm's per-doc isolation (the doc quarantines, the patch is a
-        no-op, every other channel proceeds)."""
+        ``(unchanged state, None)``, counted on ``sync.messages.rejected``
+        (``sync.v2.messages.rejected`` for v2 frames) — and a channel
+        whose changes poison its document is handled by the farm's per-doc
+        isolation (the doc quarantines, the patch is a no-op, every other
+        channel proceeds)."""
         del protocols  # inbound routing is by payload type byte
-        if any(m and m[0] == MESSAGE_TYPE_SYNC_V2 for _, _, m in channels_msgs):
-            raise NotPortedError("sync_v2", "a sync v2 message")
         farm = self.farm
         decoded = []
-        rejected = 0
+        is_v2 = []
+        rejected = rejected_v2 = received_v2 = 0
         for _, _, m in channels_msgs:
+            v2 = bool(m) and m[0] == MESSAGE_TYPE_SYNC_V2
+            is_v2.append(v2)
             try:
-                decoded.append(decode_sync_message(m))
+                decoded.append(
+                    decode_sync_message_v2(m) if v2 else decode_sync_message(m)
+                )
+                received_v2 += v2
             except (SyncProtocolError, ValueError, TypeError, IndexError):
                 decoded.append(None)
-                rejected += 1
+                if v2:
+                    rejected_v2 += 1
+                else:
+                    rejected += 1
         if _METRICS.enabled:
-            _M_MSGS_RECV.inc(len(channels_msgs) - rejected)
+            _M_MSGS_RECV.inc(len(channels_msgs) - rejected - rejected_v2
+                             - received_v2)
             _M_REJECTED.inc(rejected)
+            _M2_MSGS_RECV.inc(received_v2)
+            _M2_REJECTED.inc(rejected_v2)
             _M_BYTES_RECV.inc(sum(
                 len(m)
                 for (_, _, m), msg in zip(channels_msgs, decoded)
@@ -473,8 +553,8 @@ class SyncFarm:
         self.last_apply = None
         if len(set(live_docs)) != len(live_docs):
             return [
-                (s, None) if msg is None else self._receive_one(d, s, msg)
-                for (d, s, _), msg in zip(channels_msgs, decoded)
+                (s, None) if msg is None else self._receive_one(d, s, msg, v2)
+                for (d, s, _), msg, v2 in zip(channels_msgs, decoded, is_v2)
             ]
 
         before = {d: farm.get_heads(d) for d in docs}
@@ -488,17 +568,22 @@ class SyncFarm:
             self.last_apply = patches
 
         results = []
-        for (d, state, _), msg in zip(channels_msgs, decoded):
+        for (d, state, _), msg, v2 in zip(channels_msgs, decoded, is_v2):
             if msg is None:
                 results.append((state, None))
                 continue
             patch = patches[d] if msg["changes"] else None
-            results.append(
-                self._post_receive(d, state, msg, before[d], patch)
-            )
+            if v2:
+                results.append((
+                    self._post_receive_v2(d, state, msg, before[d]), patch,
+                ))
+            else:
+                results.append(
+                    self._post_receive(d, state, msg, before[d], patch)
+                )
         return results
 
-    def _receive_one(self, d, state, msg):
+    def _receive_one(self, d, state, msg, v2=False):
         farm = self.farm
         before = farm.get_heads(d)
         patch = None
@@ -508,7 +593,20 @@ class SyncFarm:
             result = farm.apply_changes(per_doc)
             self.last_apply = result
             patch = result[d]
+        if v2:
+            return self._post_receive_v2(d, state, msg, before), patch
         return self._post_receive(d, state, msg, before, patch)
+
+    def _post_receive_v2(self, d, state, msg, before_heads):
+        """The batched twin of receive_sync_message_v2's bookkeeping: the
+        fingerprint view re-syncs from the farm (picking up the changes
+        the batched apply just committed) before the item-range diffs."""
+        farm = self.farm
+        return post_receive_v2(
+            state, msg, before_heads, farm.get_heads(d),
+            lambda h: farm.get_change_by_hash(d, h) is not None,
+            self._v2_view(d),
+        )
 
     def _post_receive(self, d, state, msg, before_heads, patch):
         farm = self.farm

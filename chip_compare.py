@@ -65,7 +65,7 @@ print(json.dumps({
     "merged_ops_per_s": stats["merged_rows"] / stats["sync_s"],
     "sync_s": stats["sync_s"], "edit_s": stats["edit_s"],
     "scenario_s": time.perf_counter() - t0,
-    "sweeps_ms": [round(dt * 1e3, 1) for dt, _ in stats["sweeps"]],
+    "sweeps_ms": [round(sw.seconds * 1e3, 1) for sw in stats["sweeps"]],
     "phases_s": {k: round(v, 3) for k, v in prof.totals.items()},
 }))
 """

@@ -25,8 +25,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    per launch from a CUDA-graph replay, time per eager call, the launch
    floor, and the profiler's kernel mean as a cross-check
    (``kernel_times``);
-4. the same scenario at 16 documents, once on the card and once on the
-   CPU: every sync message and every patch must be byte-identical;
+4. the same scenario at 16 documents, then phase 11's mixed v1/v2 sync
+   and phase 13's supervised channels at 16 documents, once on the card
+   and once on the CPU: every sync message, patch, session frame and
+   saved session must be byte-identical;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
    card, bit-exact, at edge inputs (``segsum_edge_inputs``), each of which
    must take the pass its ids call for (the sorted pass, or the general
@@ -61,7 +63,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    build) and queried a live filter with more than 256 candidates. The
    Bloom kernels are held against their plain versions on the inputs of
    this phase's largest launches and timed there: the ``wide`` entry of
-   their rows.
+   their rows;
+11. mixed-protocol sync (``--v2-docs``, 128): phase 3's scenario with
+   replicas 0-3 on sync v2 channels and 4-7 on v1, so every sweep
+   launches both Bloom kernels and resolves the v2 channels' fingerprint
+   queries in one reduction per generate call. Every farm must converge,
+   each ``SyncFarm.generate_messages`` call whose v2 channels planned
+   queries must dispatch exactly one reduction (and any other call none),
+   and the Bloom kernels are held against their plain versions at this
+   phase's largest launches (the ``mixed`` entry of their rows); the
+   reduction is checked against NumPy and timed at its largest launch;
+12. phase 10's scenario over v2 on phase 10's loaded server: a fresh peer
+   joins, then 8 changes a side and a reconnect. Both must converge
+   within 2*log2(n)+2 round trips; the bytes moved are set beside phase
+   10's v1;
+13. supervised channels (``SESSION_DOCS``, 16): per doc a host client
+   (``backend``) against the farm through two ``SyncSession``s over a link
+   that drops 30 % of frames, on a fake clock, half the pairs on v2; every
+   session is saved and restored mid-run. Every client must converge with
+   the farm, and a v1 pair must carry plain v1 messages;
+14. a device fault (``--fault-docs``, 64, plus 2 list docs): the farm's
+   ``farm.device_dispatch`` point fails with one doc in the batch; the
+   bisection probes run on the card, the doc is quarantined (error kind
+   "device") and rolled back, the survivors are served by the sequential
+   walk with a fault-free control farm's patches, and keep applying after;
+   then every dispatch fails, and nobody is blamed.
+
+Every fault-free phase (3, 4, 6, 7, 10-13) fails if the degraded walk served
+a document (``farm.fallback.calls`` moved, or a farm has ``degraded``
+docs): only phase 14's injected fault may take it.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after. The line before the last is the kernel table (JSON); the
@@ -75,9 +105,11 @@ import contextlib
 import gc
 import json
 import os
+import random
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -91,6 +123,14 @@ TEXT_CHANGES, TEXT_OPS = 100, 50
 # phase 10 per document: history changes, ops per change, changes each side
 # makes before it reconnects
 LONG_CHANGES, LONG_OPS, LONG_NEW = 10_000, 4, 8
+# phase 11: replicas 0-3 sync over v2 channels, 4-7 over v1
+MIXED_V2_REPLICAS = 4
+# phase 13: the share of session frames the link drops (the JAX package's
+# SYNC_r01 soak loss)
+SESSION_LOSS = 0.3
+# phase 13: the documents, one supervised pair each (phase 4 runs as many)
+SESSION_DOCS = 16
+V2_TYPE = 0x45  # leading byte of a sync v2 message (sync_v2.py)
 
 
 def log(*args):
@@ -169,8 +209,9 @@ def canon(x):
 
 
 def run_scenario(device, docs, replicas, changes, ops, seed, record=None,
-                 prof=None):
-    """Builds the farms, applies the replicas' edits, syncs to quiescence.
+                 prof=None, v2_replicas=0):
+    """Builds the farms, applies the replicas' edits, syncs to quiescence
+    (replicas below `v2_replicas` over sync v2 channels, the rest over v1).
     Returns (farms, stats). `record` (a list) collects every sync message
     and every patch in order, for the card-vs-CPU comparison."""
     from automerge_tpu_torch import SyncFarm, TorchDocFarm
@@ -203,21 +244,34 @@ def run_scenario(device, docs, replicas, changes, ops, seed, record=None,
         rows0 = sum(int(f.engine.lengths.sum()) for f in [server, *farms])
 
         t_sync = time.perf_counter()
-        stats["sweeps"] = sync_until_quiet(device, ssync, rsyncs, docs, rec)
+        stats["sweeps"] = sync_until_quiet(device, ssync, rsyncs, docs, rec,
+                                           v2_replicas)
         stats["sync_s"] = time.perf_counter() - t_sync
     rows1 = sum(int(f.engine.lengths.sum()) for f in [server, *farms])
     stats["merged_rows"] = rows1 - rows0
     stats["buffers"] = [b for per_change in edits for bufs in per_change
                         for b in bufs]
+    stats["syncs"] = [ssync, *rsyncs]
     return [server, *farms], stats
 
 
-def sync_until_quiet(device, ssync, rsyncs, docs, rec):
-    """The replicas sync with the server over the Bloom protocol until no
-    message moves: per sweep, each replica generates for its channels and
-    the server receives them (one call per replica), then the server
-    generates for every channel in one call and each replica receives.
-    Returns [(sweep seconds, messages moved)]."""
+class Sweep(NamedTuple):
+    """One sync sweep: wall seconds, messages moved, how many of them were
+    sync v2 messages, and their bytes."""
+
+    seconds: float
+    moved: int
+    v2_moved: int
+    bytes: int
+
+
+def sync_until_quiet(device, ssync, rsyncs, docs, rec, v2_replicas=0):
+    """The replicas sync with the server until no message moves: per
+    sweep, each replica generates for its channels and the server receives
+    them (one call per replica), then the server generates for every
+    channel in one call and each replica receives. Replicas below
+    `v2_replicas` (and the server's channels to them) run sync v2, the
+    rest the Bloom protocol. Returns [Sweep]."""
     from automerge_tpu_torch import SyncFarm
 
     replicas = len(rsyncs)
@@ -225,21 +279,31 @@ def sync_until_quiet(device, ssync, rsyncs, docs, rec):
                 for _ in range(replicas)]
     r_states = [[SyncFarm.init_state() for _ in range(docs)]
                 for _ in range(replicas)]
+    server_protocols = [("v2" if r < v2_replicas else "v1")
+                        for r in range(replicas) for _ in range(docs)]
     sweeps = []
-    for _sweep in range(32):
+    for _sweep in range(64):
         t_sweep = time.perf_counter()
-        moved = 0
+        moved = v2_moved = nbytes = 0
+
+        def count(batch):
+            nonlocal moved, v2_moved, nbytes
+            moved += len(batch)
+            v2_moved += sum(m[0] == V2_TYPE for _, _, m in batch)
+            nbytes += sum(len(m) for _, _, m in batch)
+
         # replicas -> server: one receive call per replica (distinct docs)
         for r in range(replicas):
             out = rsyncs[r].generate_messages(
-                [(d, r_states[r][d]) for d in range(docs)])
+                [(d, r_states[r][d]) for d in range(docs)],
+                protocols=["v2" if r < v2_replicas else "v1"] * docs)
             batch = []
             for d, (state, msg) in enumerate(out):
                 r_states[r][d] = state
                 rec(msg)
                 if msg is not None:
                     batch.append((d, s_states[r][d], msg))
-            moved += len(batch)
+            count(batch)
             if batch:
                 for (d, _, _), (state, patch) in zip(
                         batch, ssync.receive_messages(batch)):
@@ -248,7 +312,7 @@ def sync_until_quiet(device, ssync, rsyncs, docs, rec):
         # server -> replicas: every channel in one generate call
         out = ssync.generate_messages(
             [(d, s_states[r][d]) for r in range(replicas)
-             for d in range(docs)])
+             for d in range(docs)], protocols=server_protocols)
         for r in range(replicas):
             batch = []
             for d in range(docs):
@@ -257,17 +321,25 @@ def sync_until_quiet(device, ssync, rsyncs, docs, rec):
                 rec(msg)
                 if msg is not None:
                     batch.append((d, r_states[r][d], msg))
-            moved += len(batch)
+            count(batch)
             if batch:
                 for (d, _, _), (state, patch) in zip(
                         batch, rsyncs[r].receive_messages(batch)):
                     r_states[r][d] = state
                     rec(canon(patch) if patch is not None else None)
         _sync(device)
-        sweeps.append((time.perf_counter() - t_sweep, moved))
+        sweeps.append(Sweep(time.perf_counter() - t_sweep, moved, v2_moved,
+                            nbytes))
         if moved == 0:
             return sweeps
-    raise RuntimeError("sync did not quiesce in 32 sweeps")
+    raise RuntimeError("sync did not quiesce in 64 sweeps")
+
+
+def log_sweeps(sweeps):
+    for i, sw in enumerate(sweeps):
+        log(f"  sweep {i}: {sw.seconds * 1e3:.1f} ms, {sw.moved} messages "
+            f"({sw.moved - sw.v2_moved} v1, {sw.v2_moved} v2), {sw.bytes} "
+            "bytes")
 
 
 def _sync(device):
@@ -293,40 +365,47 @@ def check_converged(farms, docs):
     return patches
 
 
-def run_long_history(device, docs, changes, ops, new, seed):
+def run_long_history(device, docs, changes, ops, new, seed, v2=False,
+                     server=None, actors=(2, 3)):
     """A fresh peer joins documents with a long history, then both sides
     edit and reconnect without their sync state. The server farm is
     loaded with `changes` changes of `ops` ops per doc by one actor, in
     one ``apply_changes`` call (set-up: the history it accumulated
-    before). An empty peer farm syncs with it until no message moves: the
-    server's first filter holds a doc's whole history, and it queries
-    that history against the peer's empty filter. Then the peer and the
-    server each make `new` changes per doc on top of the history (one
-    actor each), both start again from Automerge's ``initSyncState`` (a
-    client that does not persist its sync state reconnects), and they
-    sync until quiet: each side's filter holds its whole history, and each
-    queries its whole history against the other's. Returns (farms, stats)."""
+    before), unless a loaded `server` farm is given. An empty peer farm
+    syncs with it until no message moves: the server's first filter holds
+    a doc's whole history, and it queries that history against the peer's
+    empty filter. Then the peer and the server each make `new` changes
+    per doc on top of the history (as `actors`), both start again from
+    Automerge's ``initSyncState`` (a client that does not persist its
+    sync state reconnects), and they sync until quiet: each side's filter
+    holds its whole history, and each queries its whole history against
+    the other's. With `v2` every channel runs sync v2 instead. Returns
+    (farms, stats)."""
     from automerge_tpu_torch import SyncFarm, TorchDocFarm
 
     capacity = (changes + 2 * new) * ops
-    server = TorchDocFarm(docs, capacity=capacity, device=device)
+    stats = {"load_s": 0.0}
+    if server is None:
+        server = TorchDocFarm(docs, capacity=capacity, device=device)
+        history = make_edits(docs, 1, changes, ops, seed)[0]
+        t0 = time.perf_counter()
+        result = server.apply_changes(
+            [[history[c][d] for c in range(changes)] for d in range(docs)])
+        if result.quarantined:
+            raise RuntimeError(f"history quarantined: {result.quarantined}")
+        _sync(device)
+        stats["load_s"] = time.perf_counter() - t0
     peer = TorchDocFarm(docs, capacity=capacity, device=device)
-    history = make_edits(docs, 1, changes, ops, seed)[0]
-    t0 = time.perf_counter()
-    result = server.apply_changes(
-        [[history[c][d] for c in range(changes)] for d in range(docs)])
-    if result.quarantined:
-        raise RuntimeError(f"history quarantined: {result.quarantined}")
-    _sync(device)
-    stats = {"load_s": time.perf_counter() - t0}
     ssync, psync = SyncFarm(server), SyncFarm(peer)
+    v2_replicas = 1 if v2 else 0
     t0 = time.perf_counter()
     stats["join"] = sync_until_quiet(device, ssync, [psync], docs,
-                                     lambda _: None)
+                                     lambda _: None, v2_replicas)
     stats["join_s"] = time.perf_counter() - t0
-    base = ([server.get_heads(d) for d in range(docs)], changes * ops)
+    base = ([server.get_heads(d) for d in range(docs)],
+            max(server.max_op[:docs]))
     t0 = time.perf_counter()
-    for farm, actor in ((peer, 2), (server, 3)):
+    for farm, actor in zip((peer, server), actors):
         edits = make_edits(docs, 1, new, ops, seed + actor, first_actor=actor,
                            base=base)[0]
         for bufs in edits:
@@ -337,9 +416,345 @@ def run_long_history(device, docs, changes, ops, new, seed):
     stats["edit_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     stats["rejoin"] = sync_until_quiet(device, ssync, [psync], docs,
-                                       lambda _: None)
+                                       lambda _: None, v2_replicas)
     stats["rejoin_s"] = time.perf_counter() - t0
+    stats["syncs"] = (ssync, psync)
     return [server, peer], stats
+
+
+# ---------------------------------------------------------------------- #
+# supervised channels: single-document clients and the farm, through
+# SyncSessions over a lossy link on a fake clock
+
+
+class FakeClock:
+    """The sessions' injected clock: simulated seconds, advanced by the
+    driver (``SyncSession`` calls it for deadlines and backoff)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def drive_sessions(pairs, clock, link, loss, resume=None, resume_step=3,
+                   max_steps=20_000):
+    """Shuttles frames between session pairs ``[a, b]`` until every pair's
+    heads agree and no frame moves. Per step each session polls once (a
+    first, then b, pair by pair); the link drops a frame when
+    ``link.random() < loss``, else the peer handles it. The clock moves
+    0.02 s per busy step and 0.26 s per quiet one, so retransmission
+    deadlines come due. At step `resume_step`, `resume(i, pair)` may swap
+    pair i for sessions restored from ``save()``. Returns
+    (frames [(pair, side, frame bytes, dropped)], steps)."""
+    frames = []
+    for step in range(max_steps):
+        if resume is not None and step == resume_step:
+            for i, pair in enumerate(pairs):
+                pairs[i] = resume(i, pair)
+        busy = False
+        for i, pair in enumerate(pairs):
+            for side in (0, 1):
+                frame = pair[side].poll()
+                if frame is None:
+                    continue
+                busy = True
+                dropped = link.random() < loss
+                frames.append((i, side, frame, dropped))
+                if not dropped:
+                    pair[1 - side].handle(frame)
+        if not busy and all(a.driver.heads() == b.driver.heads()
+                            for a, b in pairs):
+            return frames, step
+        clock.advance(0.02 if busy else 0.26)
+    raise RuntimeError(f"sessions did not converge in {max_steps} steps")
+
+
+def session_edits(docs, seed):
+    """Per doc, the farm's changes and the client's: replicas 0 and 1 of
+    phase 3's traffic (8 changes x 16 ops each)."""
+    edits = make_edits(docs, 2, MAP_CHANGES, MAP_OPS, seed)
+    return ([[edits[0][c][d] for c in range(MAP_CHANGES)] for d in range(docs)],
+            [[edits[1][c][d] for c in range(MAP_CHANGES)] for d in range(docs)])
+
+
+def run_sessions(device, docs, seed, loss=SESSION_LOSS, record=None):
+    """Phase 13: per doc, a single-document client (this package's
+    ``backend``, on the host) pairs with the farm (on `device`) through two
+    ``SyncSession``s, ``BackendDriver`` against the SyncFarm's
+    ``FarmDriver``. Pairs of the first half of the docs negotiate sync v2,
+    the rest stay v1. Frames cross a link that drops `loss` of them, on a
+    fake clock; mid-run every session is saved and restored. Returns
+    (farm, clients, pairs, frames, stats)."""
+    from automerge_tpu_torch import (BackendDriver, SessionConfig, SyncFarm,
+                                     SyncSession, TorchDocFarm)
+    from automerge_tpu_torch import backend as Backend
+
+    farm_bufs, client_bufs = session_edits(docs, seed)
+    farm = TorchDocFarm(docs, capacity=2 * MAP_CHANGES * MAP_OPS,
+                        device=device)
+    result = farm.apply_changes(farm_bufs)
+    if result.quarantined:
+        raise RuntimeError(f"edit quarantined: {result.quarantined}")
+    sync = SyncFarm(farm)
+    clock = FakeClock()
+
+    def config(d):
+        return SessionConfig(enable_v2=d < docs // 2)
+
+    pairs = []
+    for d in range(docs):
+        client, _ = Backend.apply_changes(Backend.init(), client_bufs[d])
+        pairs.append([
+            SyncSession(BackendDriver(client), clock=clock,
+                        rng=random.Random(seed * 7919 + 2 * d),
+                        config=config(d)),
+            sync.make_session(d, clock=clock,
+                              rng=random.Random(seed * 7919 + 2 * d + 1),
+                              config=config(d)),
+        ])
+
+    def resume(d, pair):
+        blobs = [s.save() for s in pair]
+        if record is not None:
+            record.extend(blobs)
+        rng = [random.Random(seed * 104729 + 2 * d + k) for k in (0, 1)]
+        return [
+            SyncSession.restore(blobs[0], BackendDriver(pair[0].driver.backend),
+                                clock=clock, rng=rng[0], config=config(d)),
+            sync.restore_session(d, blobs[1], clock=clock, rng=rng[1],
+                                 config=config(d)),
+        ]
+
+    t0 = time.perf_counter()
+    frames, steps = drive_sessions(pairs, clock, random.Random(seed), loss,
+                                   resume)
+    _sync(device)
+    if steps <= 3:
+        raise RuntimeError("the sessions converged before they were saved "
+                           "and restored")
+    stats = {"s": time.perf_counter() - t0, "steps": steps,
+             "sim_s": clock.t}
+    if record is not None:
+        record.extend(f for _, _, f, _ in frames)
+        record.extend(s.save() for pair in pairs for s in pair)
+    return farm, [p[0].driver.backend for p in pairs], pairs, frames, stats
+
+
+def check_sessions(farm, clients, pairs, frames):
+    """Phase 13's checks: every client converged with the farm (heads and
+    whole-document patch), v2 pairs negotiated v2 and v1 pairs did not,
+    and every payload a v1 pair carried is a v1 sync message that
+    re-encodes to the same bytes. Returns per protocol {frames, payloads,
+    dropped, retransmits, watchdog} totals."""
+    from automerge_tpu_torch import backend as Backend
+    from automerge_tpu_torch.sync import decode_sync_message, encode_sync_message
+    from automerge_tpu_torch.sync_session import decode_frame
+
+    docs = len(pairs)
+    for d, (client, (a, b)) in enumerate(zip(clients, pairs)):
+        if Backend.get_heads(client) != farm.get_heads(d):
+            raise RuntimeError(f"session doc {d}: heads differ")
+        if canon(Backend.get_patch(client)) != canon(farm.get_patch(d)):
+            raise RuntimeError(f"session doc {d}: patches differ")
+        want_v2 = d < docs // 2
+        if a.v2_active != want_v2 or b.v2_active != want_v2:
+            raise RuntimeError(f"session doc {d}: v2 active {a.v2_active}/"
+                               f"{b.v2_active}, want {want_v2}")
+        if a.quarantined or b.quarantined:
+            raise RuntimeError(f"session doc {d}: channel quarantined")
+    totals = {p: dict.fromkeys(("frames", "payloads", "dropped",
+                                "retransmits", "watchdog"), 0)
+              for p in ("v1", "v2")}
+    for d, _side, frame, dropped in frames:
+        t = totals["v2" if d < docs // 2 else "v1"]
+        t["frames"] += 1
+        t["dropped"] += dropped
+        payload = decode_frame(frame)["payload"]
+        if payload is None:
+            continue
+        t["payloads"] += 1
+        if d >= docs // 2 and (payload[0] == V2_TYPE or encode_sync_message(
+                decode_sync_message(payload)) != payload):
+            raise RuntimeError(f"session doc {d}: a v1 pair carried a "
+                               "payload that is not a plain v1 message")
+    for d, pair in enumerate(pairs):
+        t = totals["v2" if d < docs // 2 else "v1"]
+        for s in pair:
+            t["retransmits"] += s.stats["retransmits"]
+            t["watchdog"] += (s.stats["stalls"] + s.stats["escalations"]
+                              + s.stats["resets"])
+    return totals
+
+
+# ---------------------------------------------------------------------- #
+# a device fault: bisection on the card, survivors served by the walk
+
+
+def fault_traffic(docs, list_docs, seed):
+    """Three rounds of deliveries for `docs` map/counter docs followed by
+    `list_docs` list/text docs: map docs take replica 0's changes of
+    phase 3's traffic (8 changes x 16 ops, one change per doc per round
+    except the first, which takes 6), list docs the seed change and then
+    actor A's phase-7 changes (a third of 20 per round). Returns the
+    rounds' per-doc buffer lists."""
+    maps = make_edits(docs, 1, MAP_CHANGES, MAP_OPS, seed)[0]
+    maps = [[maps[c][d] for c in range(MAP_CHANGES)] for d in range(docs)]
+    traffic = TextTraffic(list_docs, TEXT_OPS, seed)
+    seed_buf, rounds = text_change_buffers(traffic, 20)
+    text = [[seed_buf] + [rounds[c][0][d] for c in range(20)]
+            for d in range(list_docs)]
+    cuts = [((0, 6), (0, 8)), ((6, 7), (8, 15)), ((7, 8), (15, 21))]
+    return [[m[a:b] for m in maps] + [t[ta:tb] for t in text]
+            for (a, b), (ta, tb) in cuts]
+
+
+FALLBACK_COUNTERS = ("farm.bisect.rounds", "farm.fallback.calls",
+                     "farm.fallback.docs", "farm.quarantine.causes.device")
+
+
+@contextlib.contextmanager
+def counting_fallbacks():
+    """Turns the degraded walk's counters on alone in this package's
+    registry (the rest stays off, as in the phases' measurements) and
+    restores each counter's flag on the way out."""
+    from automerge_tpu_torch.obs.metrics import get_metrics
+
+    counters = [get_metrics().counter(name) for name in FALLBACK_COUNTERS]
+    was = [c.enabled for c in counters]
+    for c in counters:
+        c.enabled = True
+    try:
+        yield
+    finally:
+        for c, on in zip(counters, was):
+            c.enabled = on
+
+
+def fallback_counts():
+    """The degraded walk's counters ({name: value}); they move only inside
+    `counting_fallbacks`."""
+    from automerge_tpu_torch.obs.metrics import get_metrics
+
+    return {name: get_metrics().counter(name).value
+            for name in FALLBACK_COUNTERS}
+
+
+def run_device_fault(device, docs, list_docs, seed):
+    """Phase 14: a farm and a fault-free control farm of `docs` map docs
+    and `list_docs` list docs take the same deliveries. In round 1 the
+    farm's ``farm.device_dispatch`` point fails whenever doc `k` is in the
+    dispatched group (``fail_docs``): doc k must be quarantined with error
+    kind "device" and rolled back, every survivor walk-served with the
+    control's patch, and the counters must move as the JAX package's tests
+    assert. Round 2 re-sends k's lost changes with the next ones: every doc
+    applies, the degraded docs through their walk, and every whole-doc
+    read equals the control's. Round 3 fails every dispatch
+    (``fail_always``): nobody is blamed, every doc is walk-served. Returns
+    stats."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.testing import faults
+
+    n = docs + list_docs
+    capacity = 2 * MAP_CHANGES * MAP_OPS
+    farm, control = (TorchDocFarm(n, capacity=capacity, device=device,
+                                  quarantine_threshold=None)
+                     for _ in range(2))
+    rounds = fault_traffic(docs, list_docs, seed)
+    k = int(np.random.default_rng(seed).integers(docs))
+
+    def same(got, want, what):
+        for d in range(n):
+            if canon(got[d]) != canon(want[d]):
+                raise RuntimeError(f"{what}: doc {d}'s patch differs from "
+                                   "the control farm's")
+
+    def reads_equal(what):
+        for d in range(n):
+            if farm.get_heads(d) != control.get_heads(d) or canon(
+                    farm.get_patch(d)) != canon(control.get_patch(d)):
+                raise RuntimeError(f"{what}: doc {d}'s whole-doc read "
+                                   "differs from the control farm's")
+
+    def deliver(per_doc, hook=None, control_skips=()):
+        want = control.apply_changes(
+            [[] if d in control_skips else bufs
+             for d, bufs in enumerate(per_doc)])
+        fault = (contextlib.nullcontext() if hook is None
+                 else faults.inject("farm.device_dispatch", hook))
+        with counting_fallbacks(), fault:
+            c0 = fallback_counts()
+            got = farm.apply_changes(per_doc)
+            c1 = fallback_counts()
+        _sync(device)
+        return got, want, {key: c1[key] - c0[key] for key in c0}
+
+    stats = {"k": k}
+    t0 = time.perf_counter()
+    got, want, _ = deliver(rounds[0])
+    same(got, want, "round 0")
+    got, want, counts = deliver(rounds[1], faults.fail_docs([k]), (k,))
+    out = got.outcomes[k]
+    if (out.status, out.error_kind) != ("quarantined", "device"):
+        raise RuntimeError(f"doc {k}: outcome {out.status}/{out.error_kind}, "
+                           "want quarantined/device")
+    if len(farm.get_all_changes(k)) != len(rounds[0][k]):
+        raise RuntimeError(f"doc {k} was not rolled back")
+    survivors = [d for d in range(n) if d != k]
+    if not all(got.outcomes[d].status == "applied" and got.outcomes[d].fallback
+               for d in survivors):
+        raise RuntimeError("a survivor was not served by the walk")
+    if farm.degraded != set(survivors):
+        raise RuntimeError(f"degraded docs {sorted(farm.degraded)}")
+    same([got[d] if d != k else want[d] for d in range(n)], want, "round 1")
+    want_counts = {"farm.fallback.calls": 1, "farm.fallback.docs": n - 1,
+                   "farm.quarantine.causes.device": 1}
+    if any(counts[key] != v for key, v in want_counts.items()) or counts[
+            "farm.bisect.rounds"] <= 0:
+        raise RuntimeError(f"round 1 counters {counts}, want {want_counts} "
+                           "and bisect rounds > 0")
+    stats["round1"] = counts
+    resend = [list(b) for b in rounds[2]]
+    resend[k] = rounds[1][k] + resend[k]
+    got, want, counts = deliver(resend)
+    same(got, want, "round 2")
+    if got.quarantined or any(o.fallback for o in got.outcomes) or any(
+            counts.values()):
+        raise RuntimeError(f"round 2 on a sound device: {counts}")
+    reads_equal("round 2")
+    more = make_edits(n, 1, 1, MAP_OPS, seed + 9, first_actor=9,
+                      base=([farm.get_heads(d) for d in range(n)],
+                            max(farm.max_op)))[0][0]
+    got, want, counts = deliver([[b] for b in more], faults.fail_always())
+    same(got, want, "round 3")
+    if got.quarantined or not all(o.fallback for o in got.outcomes):
+        raise RuntimeError("a wedged device must blame nobody and walk-serve "
+                           "every doc")
+    if counts["farm.fallback.docs"] != n or counts[
+            "farm.quarantine.causes.device"] != 0:
+        raise RuntimeError(f"round 3 counters {counts}")
+    reads_equal("round 3")
+    stats["round3"] = counts
+    stats["s"] = time.perf_counter() - t0
+    return stats
+
+
+def check_no_fallback(before, farms, what):
+    """A fault-free phase: no dispatch failed since `before` (a
+    `fallback_counts` reading) and no farm walk-serves a document in
+    degraded mode — the walk must never pass for the device path."""
+    after = fallback_counts()
+    if after != before:
+        raise RuntimeError(f"{what}: the degraded walk ran ({before} -> "
+                           f"{after})")
+    for f in farms:
+        if f.degraded:
+            raise RuntimeError(f"{what}: docs {sorted(f.degraded)} are served "
+                               "by the degraded walk")
 
 
 # ---------------------------------------------------------------------- #
@@ -1290,6 +1705,100 @@ def recorded_bloom_launches():
         sync_batch.bloom_build, sync_batch.bloom_query = build.fn, query.fn
 
 
+@contextlib.contextmanager
+def recorded_reductions():
+    """Routes the fingerprint reduction through a `LargestLaunch` recorder
+    while the block runs, tallied by (B, E) with the widest span."""
+    from automerge_tpu_torch.tpu import fingerprint
+
+    rec = LargestLaunch(
+        fingerprint.reduce_ranges,
+        lambda words, starts, ends: (tuple(words.shape[:2]), ends - starts))
+    fingerprint.reduce_ranges = rec
+    try:
+        yield rec
+    finally:
+        fingerprint.reduce_ranges = rec.fn
+
+
+@contextlib.contextmanager
+def counted_generate_calls():
+    """Checks ``SyncFarm.generate_messages`` call by call: a call whose v2
+    channels planned fingerprint queries must dispatch exactly one
+    reduction, any other call none. Yields a tally: the calls with
+    queries, the most v2 channels with queries in one call, and the calls
+    that broke the rule as (channels with queries, reductions)."""
+    from automerge_tpu_torch.tpu import sync_farm
+
+    tally = {"with_queries": 0, "most_channels": 0, "wrong": []}
+    plain_generate = sync_farm.SyncFarm.generate_messages
+    plain_plan = sync_farm.plan_generate_v2
+    planned = []
+
+    def plan(*args):
+        v2_plan, queries = plain_plan(*args)
+        planned.append(len(queries))
+        return v2_plan, queries
+
+    def generate(self, channels, protocols=None):
+        planned.clear()
+        before = self.fingerprints.dispatches
+        out = plain_generate(self, channels, protocols)
+        with_queries = sum(1 for n in planned if n)
+        ran = self.fingerprints.dispatches - before
+        if ran != (1 if with_queries else 0):
+            tally["wrong"].append((with_queries, ran))
+        if with_queries:
+            tally["with_queries"] += 1
+            tally["most_channels"] = max(tally["most_channels"],
+                                         with_queries)
+        return out
+
+    sync_farm.plan_generate_v2 = plan
+    sync_farm.SyncFarm.generate_messages = generate
+    try:
+        yield tally
+    finally:
+        sync_farm.plan_generate_v2 = plain_plan
+        sync_farm.SyncFarm.generate_messages = plain_generate
+
+
+def reduction_row(args, floor_ms):
+    """The fingerprint reduction at a recorded launch: equal to a NumPy XOR
+    reduction of the same masked words (bit-exact), its device time per
+    call (the kernel table's CUDA-graph method), the time per eager call,
+    and its bytes bound (each input read once, the output written once)."""
+    from automerge_tpu_torch.tpu import fingerprint as fp
+
+    words, starts, ends = args
+    got = fp.reduce_ranges(*args).cpu().numpy()
+    w = words.cpu().numpy()
+    idx = np.arange(w.shape[1])[None, :]
+    mask = (idx >= starts.cpu().numpy()[:, None]) & (
+        idx < ends.cpu().numpy()[:, None])
+    want = np.bitwise_xor.reduce(np.where(mask[:, :, None], w, 0), axis=1)
+    if not np.array_equal(got, want):
+        raise RuntimeError("the fingerprint reduction disagrees with NumPy")
+    nbytes = (words.numel() + starts.numel() + ends.numel()
+              + got.size) * 4
+    return {"shape": "B {} · E {} · 8".format(*words.shape[:2]),
+            "ms": _time_graph(lambda: fp.reduce_ranges(*args)),
+            "call_ms": _time_cuda(lambda: fp.reduce_ranges(*args)),
+            "floor_ms": floor_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "max_abs_err": 0.0}
+
+
+def log_reductions(rec, row):
+    for (b, e), (n, span) in sorted(rec.shapes.items()):
+        log(f"  fingerprint reduction B={b} E={e}: {n} calls, widest span "
+            f"{span}")
+    log(f"  fingerprint reduction at {row['shape']}: ms {row['ms']:.5f} "
+        f"(device, CUDA graph), call_ms {row['call_ms']:.5f}, bound_ms "
+        f"{row['bound_ms']:.6f} (bytes), launch floor {row['floor_ms']:.5f}; "
+        "equal to NumPy")
+
+
 def log_bloom_shapes(build, query):
     """Logs the recorded launches by shape, each build with its plan
     (0 = packed, k = split on clusters of k blocks). Returns the largest
@@ -1317,6 +1826,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--text-docs", type=int, default=1024)
     parser.add_argument("--farm-text-docs", type=int, default=6)
+    parser.add_argument("--v2-docs", type=int, default=128)
+    parser.add_argument("--fault-docs", type=int, default=64)
     args = parser.parse_args(argv)
 
     for name, value in decode_cache_env(args.docs, args.replicas,
@@ -1330,14 +1841,25 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     try:
-        from automerge_tpu_torch import kernels
-        from automerge_tpu_torch.profiling import PhaseProfile
-        from automerge_tpu_torch.tpu import bloom_kernels as bk
-        from automerge_tpu_torch.tpu import sync_batch
+        import automerge_tpu_torch  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the automerge_tpu_torch package is missing: {exc}",
               file=sys.stderr)
         return 2
+
+    # every fault-free phase reads the degraded walk's counters
+    with counting_fallbacks():
+        return run_phases(args)
+
+
+def run_phases(args) -> int:
+    """Phases 1-14 on the card (see the module docstring); raises on the
+    first check that fails."""
+    import torch
+
+    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch.profiling import PhaseProfile
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1366,6 +1888,7 @@ def main(argv=None) -> int:
     # 3. main path
     prof = PhaseProfile()
     bk.reset_launch_counts()
+    fallbacks = fallback_counts()
     t0 = time.perf_counter()
     with recorded_bloom_launches() as (rec_build, rec_query):
         farms, stats = run_scenario(device, args.docs, args.replicas,
@@ -1375,6 +1898,7 @@ def main(argv=None) -> int:
     main_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     check_converged(farms, args.docs)
+    check_no_fallback(fallbacks, farms, "phase 3")
     check_s = time.perf_counter() - t0
     for name, n in launches.items():
         if n <= 0:
@@ -1389,8 +1913,7 @@ def main(argv=None) -> int:
     log(f"  edits {stats['edit_s']:.3f} s; sync {stats['sync_s']:.3f} s in "
         f"{len(sweeps)} sweeps; convergence check {check_s:.3f} s; "
         f"whole phase {main_s:.3f} s")
-    for i, (dt, moved) in enumerate(sweeps):
-        log(f"  sweep {i}: {dt * 1e3:.1f} ms, {moved} messages")
+    log_sweeps(sweeps)
     log(f"  merged rows during sync: {stats['merged_rows']} "
         f"({stats['merged_rows'] / stats['sync_s']:.0f} ops/s); server rows "
         f"{server_rows}; peak device memory "
@@ -1425,23 +1948,31 @@ def main(argv=None) -> int:
     log_bloom_rows(table["kernels"], None)
     del farms
 
-    # 4. the same scenario at 16 docs: card vs CPU, byte for byte
+    # 4. the same scenario at 16 docs, then phase 11's mixed v1/v2 sweep
+    # and phase 13's sessions: card vs CPU, byte for byte
     t0 = time.perf_counter()
     on_card, on_cpu = [], []
-    farms_c, _ = run_scenario("cuda", 16, args.replicas, args.changes,
-                              args.ops, args.seed, record=on_card)
-    farms_h, _ = run_scenario("cpu", 16, args.replicas, args.changes,
-                              args.ops, args.seed, record=on_cpu)
-    on_card.extend(check_converged(farms_c, 16))
-    on_cpu.extend(check_converged(farms_h, 16))
+    for dev, rec in (("cuda", on_card), ("cpu", on_cpu)):
+        fallbacks = fallback_counts()
+        for v2 in (0, MIXED_V2_REPLICAS):
+            f4, _ = run_scenario(dev, 16, args.replicas, args.changes,
+                                 args.ops, args.seed, record=rec,
+                                 v2_replicas=v2)
+            rec.extend(check_converged(f4, 16))
+            check_no_fallback(fallbacks, f4, f"phase 4 ({dev})")
+        f4, clients, pairs, frames, _ = run_sessions(
+            dev, SESSION_DOCS, args.seed, record=rec)
+        check_sessions(f4, clients, pairs, frames)
+        check_no_fallback(fallbacks, [f4], f"phase 4 ({dev})")
     if on_card != on_cpu:
         first = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
                      if a != b) if len(on_card) == len(on_cpu) else "length"
         raise RuntimeError(f"card and CPU runs differ (first at {first})")
-    log(f"phase 4 card vs CPU at 16 docs: {len(on_card)} messages and "
-        f"patches identical ({time.perf_counter() - t0:.2f} s)")
+    log(f"phase 4 card vs CPU at 16 docs (v1 sync, mixed v1/v2 sync, 16 "
+        f"supervised channels): {len(on_card)} messages, patches, frames "
+        f"and saved sessions identical ({time.perf_counter() - t0:.2f} s)")
 
-    del farms_c, farms_h
+    del f4, clients, pairs
 
     # 5. LEB128 kernel edge shapes and the device scan's edge streams
     t0 = time.perf_counter()
@@ -1455,6 +1986,7 @@ def main(argv=None) -> int:
     # would dominate the host clock, so it is paused for the phase (a
     # deployment setting, like the decode LRU sizes above)
     t0 = time.perf_counter()
+    fallbacks = fallback_counts()
     gc.disable()
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(args.seed)
@@ -1500,6 +2032,7 @@ def main(argv=None) -> int:
         f"(host clock, with copies), rank program {rank_ms:.3f} ms (CUDA "
         f"events); visible_texts {texts_s:.3f} s; peak device memory "
         f"{peak / 2**20:.0f} MiB")
+    check_no_fallback(fallbacks, [], "phase 6")
     log(f"  visible lengths match the traffic for every doc; {n_ref} sampled "
         f"docs equal the host reference ({ref_s:.1f} s); whole phase "
         f"{time.perf_counter() - t0:.3f} s")
@@ -1509,6 +2042,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     prof7 = PhaseProfile()
     bk.reset_launch_counts()
+    fallbacks = fallback_counts()
     with recorded_bloom_launches() as (rec_build7, rec_query7):
         tfarms, tstats = run_text_farm(device, args.farm_text_docs,
                                        TEXT_CHANGES, TEXT_OPS,
@@ -1518,6 +2052,7 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     check_text_converged(tfarms, args.farm_text_docs,
                          tstats["traffic"].text_lengths())
+    check_no_fallback(fallbacks, tfarms, "phase 7")
     check_s = time.perf_counter() - t1
     for name, n in launches7.items():
         if n <= 0:
@@ -1530,8 +2065,7 @@ def main(argv=None) -> int:
         f"{len(sweeps)} sweeps; check (device order = walk order, equal "
         f"patches) {check_s:.3f} s; whole phase "
         f"{time.perf_counter() - t0:.3f} s (run {run_s:.3f} s)")
-    for i, (dt, moved) in enumerate(sweeps):
-        log(f"  sweep {i}: {dt * 1e3:.1f} ms, {moved} messages")
+    log_sweeps(sweeps)
     log(f"  server rows {int(tfarms[0].engine.lengths.sum())}; kernel "
         f"launches: {launches7}")
     log_bloom_shapes(rec_build7, rec_query7)
@@ -1615,12 +2149,14 @@ def main(argv=None) -> int:
     # 10. a fresh peer joins long-history documents, then both reconnect
     t0 = time.perf_counter()
     bk.reset_launch_counts()
+    fallbacks = fallback_counts()
     with recorded_bloom_launches() as (rec_build10, rec_query10):
         lfarms, lstats = run_long_history(device, 2, LONG_CHANGES, LONG_OPS,
                                           LONG_NEW, args.seed)
     launches10 = dict(bk.LAUNCHES)
     run_s = time.perf_counter() - t0
     check_converged(lfarms, 2)
+    check_no_fallback(fallbacks, lfarms, "phase 10")
     want_rows = 2 * (LONG_CHANGES + 2 * LONG_NEW) * LONG_OPS
     for farm in lfarms:
         if int(farm.engine.lengths.sum()) != want_rows:
@@ -1646,6 +2182,7 @@ def main(argv=None) -> int:
                for (_, c, _), (_, live) in rec_query10.shapes.items()):
         raise RuntimeError("the long-history sync queried no live filter "
                            "with more than 256 candidates")
+    long_server = lfarms[0]  # phase 12 reuses its loaded history
     del lfarms
     # the kernels at phase 10's largest launches: exactness, times, bounds
     check_build(*rec_build10.args)
@@ -1656,6 +2193,130 @@ def main(argv=None) -> int:
             (launches10["bloom_build"], launches10["bloom_query"])):
         row["wide"] = {**wide, "launches": n}
     log_bloom_rows(table["kernels"], "wide")
+
+    # 11. mixed-protocol sync: replicas 0-3 on v2 channels, 4-7 on v1
+    prof11 = PhaseProfile()
+    bk.reset_launch_counts()
+    fallbacks = fallback_counts()
+    t0 = time.perf_counter()
+    with recorded_bloom_launches() as (rec_build11, rec_query11), \
+            recorded_reductions() as rec_red11, \
+            counted_generate_calls() as gen_calls:
+        mfarms, mstats = run_scenario(device, args.v2_docs, args.replicas,
+                                      args.changes, args.ops, args.seed,
+                                      prof=prof11,
+                                      v2_replicas=MIXED_V2_REPLICAS)
+    launches11 = dict(bk.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    check_converged(mfarms, args.v2_docs)
+    check_no_fallback(fallbacks, mfarms, "phase 11")
+    check_s = time.perf_counter() - t1
+    for name, n in launches11.items():
+        if n <= 0:
+            raise RuntimeError(f"the mixed sync never launched {name}")
+    dispatches = sum(s.fingerprints.dispatches for s in mstats["syncs"])
+    if gen_calls["wrong"] or dispatches != gen_calls["with_queries"] or \
+            dispatches == 0:
+        raise RuntimeError(
+            f"{dispatches} fingerprint reductions for "
+            f"{gen_calls['with_queries']} generate calls with v2 queries; "
+            f"calls off one per call (channels with queries, reductions): "
+            f"{gen_calls['wrong']}")
+    total_ops = args.v2_docs * args.replicas * args.changes * args.ops
+    if int(mfarms[0].engine.lengths.sum()) != total_ops:
+        raise RuntimeError("the mixed sync's server lacks rows")
+    sweeps = mstats["sweeps"]
+    log(f"phase 11 mixed-protocol sync: {args.v2_docs} docs x "
+        f"{args.replicas} replicas ({MIXED_V2_REPLICAS} on v2 channels) x "
+        f"{args.changes} changes x {args.ops} ops, card {card}")
+    log(f"  edits {mstats['edit_s']:.3f} s; sync {mstats['sync_s']:.3f} s in "
+        f"{len(sweeps)} sweeps; convergence check {check_s:.3f} s; whole "
+        f"phase {time.perf_counter() - t0:.3f} s (run {run_s:.3f} s)")
+    log_sweeps(sweeps)
+    log(f"  merged rows during sync: {mstats['merged_rows']} "
+        f"({mstats['merged_rows'] / mstats['sync_s']:.0f} ops/s); kernel "
+        f"launches: {launches11}; fingerprint reductions {dispatches} (one "
+        f"per generate call with v2 queries; up to "
+        f"{gen_calls['most_channels']} v2 channels with queries in one)")
+    log("  phase table (mixed sync, host clock):")
+    for line in prof11.table().splitlines():
+        log("    " + line)
+    log_bloom_shapes(rec_build11, rec_query11)
+    _, _, build_err11 = check_build(*rec_build11.args)
+    query_err11 = check_query(*rec_query11.args)
+    for row, n, err in zip(table["kernels"],
+                           (launches11["bloom_build"],
+                            launches11["bloom_query"]),
+                           (build_err11, query_err11)):
+        row["mixed"] = {"launches": n, "max_abs_err": err}
+    log(f"  Bloom kernels at this phase's largest launches: bit-exact "
+        f"(build {build_err11}, query {query_err11})")
+    log_reductions(rec_red11, reduction_row(rec_red11.args, floor_ms))
+    del mfarms, mstats
+
+    # 12. a long history over v2: phase 10's loaded server, a fresh peer
+    t0 = time.perf_counter()
+    bk.reset_launch_counts()
+    fallbacks = fallback_counts()
+    with recorded_reductions() as rec_red12:
+        vfarms, vstats = run_long_history(device, 2, LONG_CHANGES, LONG_OPS,
+                                          LONG_NEW, args.seed, v2=True,
+                                          server=long_server, actors=(4, 5))
+    launches12 = dict(bk.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    check_converged(vfarms, 2)
+    check_no_fallback(fallbacks, vfarms, "phase 12")
+    n_changes = len(vfarms[0].get_all_changes(0))
+    bound = 2 * np.log2(n_changes) + 2
+    trips = {k: sum(1 for sw in vstats[k] if sw.moved)
+             for k in ("join", "rejoin")}
+    if max(trips.values()) > bound:
+        raise RuntimeError(f"v2 took {trips} round trips, bound {bound:.1f}")
+    v2_bytes = {k: sum(sw.bytes for sw in vstats[k]) for k in trips}
+    v1_bytes = {k: sum(sw.bytes for sw in lstats[k]) for k in trips}
+    log(f"phase 12 long history over v2: 2 docs of {n_changes} changes "
+        f"(phase 10's server), a fresh peer joins, then {LONG_NEW} changes a "
+        f"side and a reconnect, card {card}")
+    log(f"  join {vstats['join_s']:.3f} s, {trips['join']} round trips; "
+        f"edits {vstats['edit_s']:.3f} s; reconnect {vstats['rejoin_s']:.3f} "
+        f"s, {trips['rejoin']} round trips (bound 2*log2(n)+2 = "
+        f"{bound:.1f}); whole phase {time.perf_counter() - t0:.3f} s (run "
+        f"{run_s:.3f} s)")
+    log(f"  bytes moved: join {v2_bytes['join']} (phase 10's v1: "
+        f"{v1_bytes['join']}), reconnect {v2_bytes['rejoin']} (v1: "
+        f"{v1_bytes['rejoin']}); Bloom launches {launches12}; fingerprint "
+        f"reductions {sum(s.fingerprints.dispatches for s in vstats['syncs'])}")
+    log_reductions(rec_red12, reduction_row(rec_red12.args, floor_ms))
+    del vfarms, vstats, long_server
+
+    # 13. supervised channels: single-document clients against the farm
+    fallbacks = fallback_counts()
+    sfarm, clients, pairs, frames, sstats = run_sessions(
+        device, SESSION_DOCS, args.seed)
+    totals = check_sessions(sfarm, clients, pairs, frames)
+    check_no_fallback(fallbacks, [sfarm], "phase 13")
+    log(f"phase 13 supervised channels: {SESSION_DOCS} docs, a "
+        f"host client per doc against the farm on the card, "
+        f"{SESSION_DOCS // 2} pairs on v2, {SESSION_LOSS:.0%} of frames "
+        f"dropped, every session saved and restored at step 3; converged in "
+        f"{sstats['steps']} steps ({sstats['sim_s']:.2f} simulated s, "
+        f"{sstats['s']:.3f} s), card {card}")
+    for proto, t in totals.items():
+        log(f"  {proto}: {t['frames']} frames ({t['payloads']} with a "
+            f"payload, {t['dropped']} dropped), {t['retransmits']} "
+            f"retransmissions, {t['watchdog']} watchdog events")
+    del sfarm, clients, pairs, frames
+
+    # 14. a device fault on the card: bisection, quarantine, the walk
+    fstats = run_device_fault(device, args.fault_docs, 2, args.seed)
+    log(f"phase 14 device fault: {args.fault_docs} map docs + 2 list docs, "
+        f"farm.device_dispatch fails with doc {fstats['k']} in the batch: "
+        f"doc {fstats['k']} quarantined (device) and rolled back, survivors "
+        f"walk-served with the control farm's patches, and degraded docs "
+        f"equal to it after the next call; counters {fstats['round1']}; "
+        f"then every dispatch failing: nobody blamed, {fstats['round3']}; "
+        f"{fstats['s']:.3f} s, card {card}")
 
     log(card)
     log(json.dumps(table))

@@ -2,14 +2,13 @@
 CPU: the ListWorkload differential of tests/test_farm_lists.py with
 TorchDocFarm and TpuDocFarm side by side (every round's patches and the
 whole-document patches dict-equal, both isolation modes), carrying list
-documents across from a JAX export, per-doc quarantine, and the rollback
-that still refuses a failed device dispatch."""
+documents across from a JAX export, and per-doc quarantine. A failed device
+dispatch on list documents is tests/test_torch_degraded.py's."""
 import pytest
 
 from automerge_tpu.tpu.farm import TpuDocFarm
 from automerge_tpu_torch import TorchDocFarm
 from automerge_tpu_torch.carry import doc_from_jax_export
-from automerge_tpu_torch.errors import NotPortedError
 from test_farm_lists import ListWorkload, make_change
 
 
@@ -82,36 +81,6 @@ def test_list_doc_quarantine_matches_jax():
     assert got[0] == want[0] and got[1] == want[1]
     assert list(got.quarantined) == list(want.quarantined) == [1]
     assert got.quarantined[1].error_kind == want.quarantined[1].error_kind
-    _whole_docs_equal(jax, port)
-
-
-def test_failed_device_dispatch_rolls_back_and_raises():
-    jax, port = _farms(2)
-    loads = [ListWorkload(60 + d) for d in range(2)]
-    for _ in range(3):
-        _round(jax, port, loads)
-    per_doc = [[loads[d].next_change(jax.get_heads(d))] for d in range(2)]
-    before = [(port.get_heads(d), port.get_patch(d)) for d in range(2)]
-    lengths = port.engine.lengths.tolist()
-    elems = port.num_elems.tolist()
-
-    def fail(*args, **kwargs):
-        raise RuntimeError("device lost")
-
-    port.engine.apply_batch = fail
-    with pytest.raises(NotPortedError) as err:
-        port.apply_changes(per_doc)
-    assert err.value.slice_name == "opset"
-    del port.engine.apply_batch
-    assert [(port.get_heads(d), port.get_patch(d)) for d in range(2)] == before
-    assert port.engine.lengths.tolist() == lengths
-    assert port.num_elems.tolist() == elems
-    assert port.fault_counts == [0, 0] and not port.quarantine
-    # the walks that took the lost delivery rebuild from the committed log:
-    # delivering it again gives the JAX farm's patches
-    want = jax.apply_changes(per_doc)
-    got = port.apply_changes(per_doc)
-    assert list(got) == list(want)
     _whole_docs_equal(jax, port)
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: importing automerge_tpu_torch (its farm, its
-SyncFarm, its sequential engine, text engine and kernels included) or
-chip_smoke.py loads neither JAX nor anything of the JAX package, and its
+SyncFarm, its sequential engine, text engine and kernels, its backend,
+sync v2, sessions, fault points, flight recorder and fingerprint index
+included) or chip_smoke.py loads neither JAX nor anything of the JAX package, and its
 entry points refuse to fall back to the CPU when no card is present."""
 import subprocess
 import sys
@@ -14,9 +15,15 @@ ROOT = Path(__file__).resolve().parent.parent
 PROBE = """
 import sys
 import automerge_tpu_torch
+import automerge_tpu_torch.backend
 import automerge_tpu_torch.carry
 import automerge_tpu_torch.kernels
+import automerge_tpu_torch.obs.flight
 import automerge_tpu_torch.opset
+import automerge_tpu_torch.sync_session
+import automerge_tpu_torch.sync_v2
+import automerge_tpu_torch.testing.faults
+import automerge_tpu_torch.tpu.fingerprint
 import automerge_tpu_torch.tpu.decode
 import automerge_tpu_torch.tpu.leb_kernels
 import automerge_tpu_torch.tpu.rga

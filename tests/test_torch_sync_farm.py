@@ -218,22 +218,31 @@ def test_list_changes_raise_before_anything_commits():
 
 
 def test_sync_v2_raises_not_ported():
+    """Sync v2 channels and messages run (tests/test_torch_sync_v2.py holds
+    them against the JAX SyncFarm); only the persistence tier still raises
+    ``NotPortedError``, from the farm and from the fingerprint index. The
+    name dates from the slice in which v2 raised too."""
     farm = TorchDocFarm(1, capacity=32, device="cpu")
     sync = SyncFarm(farm)
+    ((state, msg),) = sync.generate_messages([(0, SyncFarm.init_state())],
+                                             protocols=["v2"])
+    assert msg[0] == 0x45
+    # a malformed v2 frame is rejected in place, like a malformed v1 one
+    assert sync.receive_messages([(0, state, b"\x45\x00")]) == [(state, None)]
     with pytest.raises(NotPortedError) as err:
-        sync.generate_messages([(0, SyncFarm.init_state())], protocols="v2")
-    assert err.value.slice_name == "sync_v2"
-    with pytest.raises(NotPortedError):
-        sync.receive_messages([(0, SyncFarm.init_state(), b"\x45\x00")])
-    with pytest.raises(NotPortedError):
         farm.attach_store(object())
+    assert err.value.slice_name == "store"
+    with pytest.raises(NotPortedError) as err:
+        sync.fingerprints.rebuild_from_store(object())
+    assert err.value.slice_name == "store"
 
 
 def test_carry_refuses_list_documents():
-    """List documents carry across now (tests/test_torch_farm_lists.py);
-    what is still refused is a document in the JAX farm's degraded mode
-    (walk-served after a failed device dispatch), which this package has
-    not ported."""
+    """A document in the JAX farm's degraded mode (walk-served after a
+    failed device dispatch) carries across, as list documents do
+    (tests/test_torch_farm_lists.py): it stays degraded in the port, and
+    both farms serve it the same patches. The name dates from the slices
+    in which the carry refused both."""
     jax = TpuDocFarm(2, capacity=32)
     bufs = [[make_change(a, 1, 1, [], [
         {"action": "set", "obj": "_root", "key": "x", "datatype": "uint",
@@ -241,5 +250,12 @@ def test_carry_refuses_list_documents():
     with faults.inject("farm.device_dispatch", faults.fail_docs([0])):
         result = jax.apply_changes(bufs)
     assert list(result.quarantined) == [0] and 1 in jax.degraded
-    with pytest.raises(ValueError, match="degraded"):
-        doc_from_jax_export(jax.export_doc(1))
+    port = TorchDocFarm(2, capacity=32, device="cpu")
+    port.adopt_doc(1, doc_from_jax_export(jax.export_doc(1)))
+    assert port.degraded == {1}
+    same(port.get_patch(1), jax.get_patch(1))
+    more = make_change("bbbbbbbb", 2, 2, jax.get_heads(1), [
+        {"action": "set", "obj": "_root", "key": "x", "datatype": "uint",
+         "value": 2, "pred": ["1@bbbbbbbb"]}])
+    same(port.apply_changes([[], [more]]), jax.apply_changes([[], [more]]))
+    same(port.get_patch(1), jax.get_patch(1))
