@@ -15,7 +15,14 @@ Entry points run on the card unless the caller asks for the CPU
 
 A single-document peer runs over ``backend`` with ``SyncSession`` and
 ``BackendDriver``; ``encode_sync_state``/``decode_sync_state`` persist a
-channel's sync state.
+channel's sync state. A durable server hydrates from its write-ahead log
+and serves clients through the batching front door:
+
+    from automerge_tpu_torch.serve import AmServer
+    from automerge_tpu_torch.store import open_farm
+
+    farm, store = open_farm("shard-000", num_docs=1024)  # cold start
+    server = AmServer(farm)                     # sessions + DynamicBatcher
 """
 from .sync import decode_sync_state, encode_sync_state
 from .sync_session import BackendDriver, SessionConfig, SyncSession

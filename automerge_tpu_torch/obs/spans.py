@@ -8,8 +8,9 @@ tasks. This module replaces it with:
 - **Span trees**: `Trace.span(name)` opens a nested span; each distinct
   (parent, name) node accumulates wall time, call count and a fixed-bucket
   latency histogram from which p50/p95/p99 are read. Trees render as an
-  indented table (`Trace.tree_table()`). (The JAX package's JSON-lines
-  export of a trace is not part of this package yet.)
+  indented table (`Trace.tree_table()`) and export/import as JSON lines
+  (`Trace.to_jsonl()` / `Trace.from_jsonl()`) so a bench run on one host
+  can be inspected on another.
 - **Ambient propagation via `contextvars`**: `use_trace(trace)` installs
   the trace for the current *context* (thread / asyncio task), so
   concurrent farms never cross-pollute each other's profiles
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import json
 import math
 import time
 from typing import Iterator
@@ -204,6 +206,60 @@ class Trace:
                 f"{_fmt_s(node.percentile(0.99)):>9}"
             )
         return "\n".join(lines)
+
+    # ------------------------------------------------------------------ #
+    # JSON-lines export / import
+
+    def to_jsonl(self) -> str:
+        """One JSON object per span node, carrying its path from the root —
+        a flat, stream-appendable trace dump."""
+        lines: list[str] = []
+
+        def walk(node: SpanNode, path: list[str]) -> None:
+            lines.append(json.dumps({
+                "path": path,
+                "total_s": node.total_s,
+                "calls": node.calls,
+                "buckets": {str(b): c for b, c in sorted(node.buckets.items())},
+            }, sort_keys=True))
+            for child in node.children.values():
+                walk(child, path + [child.name])
+
+        for top in self.root.children.values():
+            walk(top, [top.name])
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    @classmethod
+    def from_jsonl(cls, text: str) -> "Trace":
+        """Rebuilds a trace from `to_jsonl` output (order-insensitive;
+        repeated paths accumulate, so concatenated dumps merge)."""
+        trace = cls()
+        trace.absorb_jsonl(text)
+        return trace
+
+    def absorb_jsonl(self, text: str) -> "Trace":
+        """Merges a `to_jsonl` dump into THIS trace in place (same
+        accumulate-on-repeated-path semantics as ``from_jsonl``). This is
+        how a mesh worker's phase totals land in the controller's ambient
+        profile: the worker runs its shard dispatch under its own trace,
+        ships ``to_jsonl()`` back with the result frame, and the
+        controller absorbs it — so ``--watch`` still attributes
+        device_dispatch/transcode time per shard even when the shard
+        lives in another process."""
+        for line in text.splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            entry = json.loads(line)
+            node = self.root
+            for name in entry["path"]:
+                node = node.child(name)
+            node.total_s += entry["total_s"]
+            node.calls += entry["calls"]
+            for b, c in entry.get("buckets", {}).items():
+                b = int(b)
+                node.buckets[b] = node.buckets.get(b, 0) + c
+        return self
 
 
 def _fmt_s(seconds: float | None) -> str:

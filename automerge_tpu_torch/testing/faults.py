@@ -36,8 +36,6 @@ from ..columnar import MAGIC_BYTES, encode_change
 _HOOKS: dict[str, list] = {}
 
 #: points consulted by this package's code, for discoverability in tests
-#: (the JAX package's chaos-transport and store points come with the port
-#: of those modules)
 POINTS = (
     "farm.decode",           # per doc, before buffers are decoded
     "farm.device_dispatch",  # before the batched device merge and before
@@ -47,6 +45,13 @@ POINTS = (
     "sync.receive_message",  # before a peer message is decoded
     "sync.receive_message_v2",  # before a peer v2 message is decoded
     "session.receive",       # before a session frame is decoded (frame=bytes)
+    "chaos.send",            # chaos transport, before a frame enters a link
+    "chaos.deliver",         # chaos transport, before a frame leaves a link
+    "store.append",          # before a commit frame hits the WAL (doc=int)
+    "store.fsync",           # inside the fsync seam, before fdatasync (path=str)
+    "store.rotate",          # at each rotation stage (stage="footer"|"rename")
+    "store.compact",         # at each compaction stage (stage="write"|"verify"|
+                             #   "swap"|"cleanup")
 )
 
 

@@ -42,8 +42,10 @@ byte-exact by construction. The device engine still carries every doc's
 rows (list rows included: element forests feed the batched RGA rank in
 rga.py) for whole-document reads, conflict winners and counter totals.
 
-Not in this package yet: the persistence tier (``attach_store`` raises
-``NotPortedError`` naming its slice, before anything commits).
+Persistence: ``attach_store`` routes every committed delivery through a
+``store.ShardStore`` write-ahead log and its group-commit fsync barrier
+before the call returns (acked means durable), and ``store.open_farm``
+rebuilds a farm from that log in one batched delivery.
 
 Fault isolation: under the default ``isolation="doc"`` every document is
 its own fault domain — a poisoned delivery (corrupt bytes, causal
@@ -78,13 +80,13 @@ from ..common import utf16_key
 from ..errors import (
     CausalityError,
     DeviceFaultError,
-    NotPortedError,
     PackingLimitError,
     QuarantinedError,
     error_kind,
 )
 from ..obs.flight import get_flight
 from ..obs.metrics import get_metrics
+from ..obs.scope import current_exemplar
 from ..opset import OpSet, append_edit
 from ..testing.faults import fire as _fault_point
 from .engine import (
@@ -96,6 +98,7 @@ from .engine import (
     BatchedMapEngine,
     PAD_KEY,
     _MKEY_OP_BITS,
+    _to_host,
     changes_from_numpy,
 )
 from . import rga
@@ -273,13 +276,19 @@ _M_TC_ORACLE = _METRICS.counter(
     "docs re-routed to the scalar chain after verdicts (seq/ref anomalies "
     "whose canonical error the oracle owns)",
 )
+# amscope hooks: the dispatch/readback latency histograms carry the
+# ambient serve DispatchSpan id as their bucket exemplar, so a farm-side
+# latency spike links back to the batched request traces it served.
 _M_DISPATCH_MS = _METRICS.histogram(
     "farm.dispatch.latency_ms",
-    "host-measured batched device merge dispatch latency",
+    "host-measured batched device merge dispatch latency (on the card the "
+    "host clock reads the enqueue: apply_batch does not synchronise); "
+    "exemplars name the owning serve dispatch span",
 )
 _M_READBACK_MS = _METRICS.histogram(
     "farm.readback.latency_ms",
-    "host-measured scoped visibility readback latency",
+    "host-measured scoped visibility readback latency; exemplars name "
+    "the owning serve dispatch span",
 )
 # flight-recorder hook (obs/flight.py): quarantine transitions and device
 # faults leave timeline events (with the offending change hashes) and
@@ -449,6 +458,10 @@ class TorchDocFarm:
         self.num_docs = num_docs
         self.engine = BatchedMapEngine(num_docs, capacity,
                                        page_size=page_size, device=device)
+        # optional crash-consistent persistence tier (store/): attach_store
+        # routes every committed delivery through the WAL and a
+        # group-commit fsync barrier before its patches are acked
+        self.store = None
         # interners are shared across the batch: actor ids, (objectId, key)
         # slots and scalar values are global tables, document state is not.
         # Caps guard the merge-key packing ranges (slot << 44 | ctr << 20 |
@@ -1273,6 +1286,14 @@ class TorchDocFarm:
         snapshots: dict[int, dict] = {}
         fallback_docs: set[int] = set()
         attempted = [d for d in range(self.num_docs) if per_doc_buffers[d]]
+        # WAL capture: remember each attempted doc's committed-change count.
+        # The delta at return is exactly what this call committed — uniform
+        # across the columnar gate, the scalar oracle and the fallback walk,
+        # and naturally zero for docs a quarantine rollback restored.
+        store_marks = (
+            {d: len(self.changes[d]) for d in attempted}
+            if self.store is not None else None
+        )
 
         def quarantine(d, exc):
             """Captures one doc's failure: rolls its state back, drops its
@@ -1537,7 +1558,8 @@ class TorchDocFarm:
                     self.engine.apply_batch(batch, docs=active, counts=counts)
                     if _METRICS.enabled:
                         _M_DISPATCH_MS.observe(
-                            (time.perf_counter() - dispatch_t0) * 1000.0
+                            (time.perf_counter() - dispatch_t0) * 1000.0,
+                            exemplar=current_exemplar(),
                         )
                 except Exception as exc:
                     if not doc_mode:
@@ -1670,12 +1692,37 @@ class TorchDocFarm:
                     patch["actor"] = applied_changes[d][0]["actor"]
                     patch["seq"] = applied_changes[d][0]["seq"]
                 patches.append(patch)
+        if self.store is not None:
+            # acked ⇒ durable: commits reach the WAL and the group-commit
+            # fsync barrier BEFORE patches leave this call. A store failure
+            # here raises out of apply_changes — the caller never sees an
+            # ack the log cannot replay.
+            with prof.phase("store_commit"):
+                for d in attempted:
+                    tail = self.changes[d][store_marks[d]:]
+                    if tail:
+                        self.store.append_commit(d, tail)
+                self.store.commit_barrier(self._store_quarantine_snapshot())
         return FarmApplyResult(patches, outcomes)
 
+    # ------------------------------------------------------------------ #
+    # persistence (store/): the WAL rides the ack boundary
+
     def attach_store(self, store) -> None:
-        """The persistence tier (write-ahead log, cold start) is not ported
-        yet: raises ``NotPortedError``."""
-        raise NotPortedError("store", "attach_store")
+        """Attaches a ``ShardStore``: every committed delivery is appended
+        to its WAL and made durable before ``apply_changes`` returns, and
+        quarantine transitions persist to the store's sidecar. Hydrate the
+        farm from the store FIRST (``store.hydrate.open_farm`` does both in
+        order) — attached commits are logged, hydration must not be."""
+        self.store = store
+        # seed the sidecar so pre-existing quarantine state survives even
+        # if no further delivery ever arrives
+        store.save_quarantine(self._store_quarantine_snapshot())
+
+    def _store_quarantine_snapshot(self) -> dict:
+        from ..store.hydrate import quarantine_snapshot
+
+        return quarantine_snapshot(self)
 
     # ------------------------------------------------------------------ #
     # fault domains: snapshot/rollback, quarantine
@@ -1870,6 +1917,8 @@ class TorchDocFarm:
         _M_Q_ACTIVE.set(len(self.quarantine))
         if released and _FLIGHT.enabled:
             _FLIGHT.record("farm.quarantine.release", docs=released)
+        if released and self.store is not None:
+            self.store.save_quarantine(self._store_quarantine_snapshot())
         return released
 
     # ------------------------------------------------------------------ #
@@ -2216,7 +2265,8 @@ class TorchDocFarm:
         )
         if _METRICS.enabled:
             _M_READBACK_MS.observe(
-                (time.perf_counter() - readback_t0) * 1000.0
+                (time.perf_counter() - readback_t0) * 1000.0,
+                exemplar=current_exemplar(),
             )
         offset = 0
         for d, idx in plan:
@@ -2294,7 +2344,8 @@ class TorchDocFarm:
         )
         if _METRICS.enabled:
             _M_READBACK_MS.observe(
-                (time.perf_counter() - readback_t0) * 1000.0
+                (time.perf_counter() - readback_t0) * 1000.0,
+                exemplar=current_exemplar(),
             )
         out = {}
         offset = 0
@@ -2318,6 +2369,20 @@ class TorchDocFarm:
 
     # ------------------------------------------------------------------ #
     # patch assembly from the visibility mirror
+
+    def _read_visibility(self):
+        """Full-state readback — the reference path the incremental mirror
+        is verified against (tests/test_torch_readback.py): one readback of
+        the engine's whole visibility state plus a dense gather of the
+        action column from the paged slab, as numpy. Production paths use
+        the mirror; this exists for whole-state debugging and the parity
+        suite."""
+        keys, ops, visible, _winners, totals = self.engine.visible_state(
+            actor_rank=self._actor_rank() if self.actors.table else None
+        )
+        keys, ops, visible, totals = _to_host(keys, ops, visible, totals)
+        actions = self.engine.dense_view()[2]
+        return keys, ops, visible, totals, actions
 
     def _slot_span(self, d, slot):
         mkey = self._vis_mkey[d]

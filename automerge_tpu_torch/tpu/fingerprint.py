@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..columnar import decode_change_meta_cached
-from ..errors import NotPortedError, SyncProtocolError
+from ..errors import SyncProtocolError
 from ..sync import HASH_SIZE
 
 #: one SHA-256 hash as big-endian uint32 words
@@ -174,9 +174,11 @@ class FingerprintIndex:
         ])
 
     def rebuild_from_store(self, store) -> None:
-        """Re-hydration from the persistence tier's hash graph: the store
-        is not ported yet, so this raises ``NotPortedError``."""
-        raise NotPortedError("store", "rebuild_from_store")
+        """Re-hydrates from the store's hash graph (``ShardStore``'s per-doc
+        footer hash lists) — the restart path: the store already proved
+        these hashes against its checksummed segments."""
+        for d, hashes in store.footer_hashes.items():
+            self.sync_doc(int(d), hashes)
 
     # -------------------------------------------------------------- #
 

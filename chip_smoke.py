@@ -26,9 +26,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    floor, and the profiler's kernel mean as a cross-check
    (``kernel_times``);
 4. the same scenario at 16 documents, then phase 11's mixed v1/v2 sync
-   and phase 13's supervised channels at 16 documents, once on the card
-   and once on the CPU: every sync message, patch, session frame and
-   saved session must be byte-identical;
+   and phase 13's supervised channels at 16 documents, phase 15's store
+   at 16 documents, and phase 16's serving at 64 clients over 16 docs with
+   30 % chaos and a store attached, once on the card and once on the CPU:
+   every sync message, patch, session frame, saved session, load report
+   and store file must be byte-identical;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
    card, bit-exact, at edge inputs (``segsum_edge_inputs``), each of which
    must take the pass its ids call for (the sorted pass, or the general
@@ -41,7 +43,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Every doc's visible length must match the traffic and 32 sampled docs
    must equal a plain host reference;
 7. the same per-doc traffic through a server ``TorchDocFarm`` and one
-   replica farm per actor at ``--farm-text-docs`` (6) documents (one change
+   replica farm per actor at ``--farm-text-docs`` (3) documents (one change
    per doc per ``apply_changes`` call), then the Bloom sync until no
    message moves. Every farm must converge, every whole-doc patch (device
    RGA rank + mirror) must equal the farm's embedded sequential walk's,
@@ -87,9 +89,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bisection probes run on the card, the doc is quarantined (error kind
    "device") and rolled back, the survivors are served by the sequential
    walk with a fault-free control farm's patches, and keep applying after;
-   then every dispatch fails, and nobody is blamed.
+   then every dispatch fails, and nobody is blamed;
+15. the store (``--store-docs``, 256, x 6 rounds x one 256-op change: the
+   JAX package's STORE_r01.json shape): the deliveries through a bare farm
+   and through one with a ``ShardStore`` attached (fsync on), in turns
+   bare, WAL, WAL, bare; the per-doc sequential loads of 16 docs against
+   ``open_farm``'s batched cold start on the card, a clean recovery report
+   and hydrated patches equal to the writer's for every doc, a fresh
+   replica caught up over the Bloom sync, and, after one more round logged
+   by the hydrated farm, a torn tail that recovers exactly the acked prefix
+   (``run_store``);
+16. the serving front door (``--serve-clients`` 1,024 over 128 docs, one
+   doc per 8 clients: the JAX package's SERVE_r06.json shape cut from
+   10,000 over 1,024): ``LoadGen``'s clients against ``AmServer`` and its
+   ``DynamicBatcher`` over the farm on the card, 2 edits of 4 ops per
+   client over 2.0 simulated s, the default batcher and session settings.
+   Every client must converge (``run_serve``). Phases 15 and 16 hold both
+   Bloom kernels bit-exact against their plain versions at their largest
+   launches there.
 
-Every fault-free phase (3, 4, 6, 7, 10-13) fails if the degraded walk served
+Every fault-free phase (3, 4, 6, 7, 10-13, 15, 16) fails if the degraded walk served
 a document (``farm.fallback.calls`` moved, or a farm has ``degraded``
 docs): only phase 14's injected fault may take it.
 
@@ -1817,6 +1836,455 @@ def log_bloom_shapes(build, query):
     return largest
 
 
+# ---------------------------------------------------------------------- #
+# the store (phase 15): the WAL's cost, the batched cold start, recovery
+
+# phase 15: docs, rounds of one change per doc, ops per change (the JAX
+# package's STORE_r01.json shape), and the sample of the per-doc loads
+STORE_DOCS, STORE_ROUNDS, STORE_OPS = 256, 6, 256
+STORE_SAMPLE = 16
+STORE_COUNTERS = ("store.append.records", "store.append.bytes",
+                  "store.fsyncs")
+
+
+def store_streams(docs, rounds, ops, seed):
+    """Per doc, one actor's change stream: `rounds` changes of `ops` uint
+    sets on 64 root keys, each naming the previous op on its key as pred
+    (the JAX package's ``bench._make_change_stream``, seeded with
+    seed + d for doc d)."""
+    from automerge_tpu_torch.columnar import decode_change_columns, encode_change
+
+    streams = []
+    for d in range(docs):
+        rng = random.Random(seed + d)
+        actor = "aaaaaaaa"
+        buffers, last, max_op, deps = [], {}, 0, []
+        for r in range(rounds):
+            body = []
+            ctr = start_op = max_op + 1
+            for _ in range(ops):
+                key = f"k{rng.randrange(64)}"
+                body.append({"action": "set", "obj": "_root", "key": key,
+                             "datatype": "uint", "value": rng.randrange(10**6),
+                             "pred": [last[key]] if key in last else []})
+                last[key] = f"{ctr}@{actor}"
+                ctr += 1
+            max_op = ctr - 1
+            buf = encode_change({"actor": actor, "seq": r + 1,
+                                 "startOp": start_op, "time": 0,
+                                 "deps": deps, "ops": body})
+            deps = [decode_change_columns(buf)["hash"]]
+            buffers.append(buf)
+        streams.append(buffers)
+    return streams
+
+
+def dir_files(root):
+    """[(name, bytes)] of every file under `root`, sorted by path."""
+    out = []
+    for base, _dirs, names in sorted(os.walk(root)):
+        for name in sorted(names):
+            path = os.path.join(base, name)
+            with open(path, "rb") as fh:
+                out.append((os.path.relpath(path, root), fh.read()))
+    return out
+
+
+def last_commit_frame(path):
+    """(offset, length, doc, changes) of the last frame of a WAL segment,
+    read with the segment's frame layout (``u32le length | sha256 |
+    payload``, payload ``u8 type | uleb doc | uleb n | ...``)."""
+    from automerge_tpu_torch.store.wal import _HEADER
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    pos, last = len(_HEADER), None
+    while pos < len(data):
+        length = int.from_bytes(data[pos:pos + 4], "little")
+        last = (pos, 4 + 32 + length)
+        pos += 4 + 32 + length
+    if last is None or pos != len(data):
+        raise RuntimeError(f"{path}: no whole last frame")
+    payload = data[last[0] + 36:last[0] + last[1]]
+    if payload[0] != 1:
+        raise RuntimeError(f"{path}: the last frame is not a commit record")
+    values, i = [], 1
+    for _ in range(2):
+        value = shift = 0
+        while True:
+            byte = payload[i]
+            i += 1
+            value |= (byte & 0x7F) << shift
+            shift += 7
+            if not byte & 0x80:
+                break
+        values.append(value)
+    return last[0], last[1], values[0], values[1]
+
+
+def run_store(device, docs, rounds, ops, seed, root, sample=STORE_SAMPLE,
+              record=None, what="phase 15"):
+    """Phase 15 in `root` (a directory this call owns): `docs` documents
+    take `rounds` deliveries of one `ops`-op change each.
+
+    1. WAL cost: the deliveries through a bare ``TorchDocFarm`` and through
+       one with a ``ShardStore`` attached (fsync on, one barrier per
+       delivery), after one warm-up pass, in turns bare, WAL, WAL, bare,
+       each after a full collection of the cyclic garbage collector, all
+       with this package's metrics registry on (the store's append
+       counters need it); the first WAL run's store is the one the rest
+       of the phase reads;
+    2. cold start: the per-doc sequential loads (``OpSet``) of a `sample`
+       of the recovered docs, then ``open_farm`` on `device`, each after
+       clearing the decode caches; the hydrated farm's recovery report
+       must be clean and its change log, heads and whole-doc patches equal
+       to the writer's (and the sample's heads);
+    3. catch-up: a fresh replica joins the hydrated farm over the Bloom
+       sync until no message moves, and must converge;
+    4. torn tail: the hydrated farm takes one more round (logged to the
+       store it attached, whose segments are sized so that round cannot
+       rotate the active one away), then, on a copy of its directory, the
+       active segment is cut in the middle of its last frame; reopening
+       must recover exactly the acked commits before that frame.
+
+    Every farm the phase builds is checked for degraded docs before it is
+    dropped (`what` names the phase); run it inside `counting_fallbacks`
+    for the walk's counters to count outside the timed turns too.
+    `record` collects the store's files, the patches and the sync
+    messages, for the card-vs-CPU comparison. Returns stats."""
+    import shutil
+
+    from automerge_tpu_torch import SyncFarm, TorchDocFarm
+    from automerge_tpu_torch.columnar import clear_decode_caches
+    from automerge_tpu_torch.obs.metrics import enabled_metrics, get_metrics
+    from automerge_tpu_torch.opset import OpSet
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+    from automerge_tpu_torch.store import ShardStore, StoreConfig, open_farm
+
+    def rec(x):
+        if record is not None:
+            record.append(x)
+
+    streams = store_streams(docs, rounds + 1, ops, seed)
+    deliveries = [[[streams[d][r]] for d in range(docs)]
+                  for r in range(rounds)]
+    capacity = (rounds + 1) * ops + 8
+    wal = os.path.join(root, "shard-000")
+    fallbacks = fallback_counts()
+
+    def farm():
+        return TorchDocFarm(docs, capacity=capacity, device=device)
+
+    def deliver(f, prof):
+        t0 = time.perf_counter()
+        with use_profile(prof):
+            for delivery in deliveries:
+                result = f.apply_changes(delivery)
+                if result.quarantined:
+                    raise RuntimeError(f"store delivery quarantined: "
+                                       f"{result.quarantined}")
+        _sync(device)
+        return time.perf_counter() - t0
+
+    # warm-up: the round shape both timed loops run
+    deliver(farm(), PhaseProfile(enabled=False))
+
+    # turns bare, WAL, WAL, bare, each after a full collection; the
+    # registry goes off again at the end: give the degraded walk's
+    # counters back their flags afterwards
+    stats = {"turns": [], "gen2": {"bare": 0, "wal": 0}}
+    registry = get_metrics()
+    profs = {"bare": PhaseProfile(), "wal": PhaseProfile()}
+    writer = None
+    with counting_fallbacks(), enabled_metrics():
+        for turn in ("bare", "wal", "wal", "bare"):
+            f, store = farm(), None
+            first = turn == "wal" and writer is None
+            if turn == "wal":
+                store = ShardStore(wal if first else
+                                   os.path.join(root, "wal-2"), StoreConfig())
+                f.attach_store(store)
+                before = {n: registry.counter(n).value for n in STORE_COUNTERS}
+            gc.collect()
+            gen2 = gc.get_stats()[2]["collections"]
+            seconds = deliver(f, profs[turn])
+            stats["gen2"][turn] += gc.get_stats()[2]["collections"] - gen2
+            stats["turns"].append((turn, seconds))
+            check_no_fallback(fallbacks, [f], f"{what} ({turn} turn)")
+            if store is not None:
+                store.close()
+            if first:
+                writer = f
+                for name in STORE_COUNTERS:
+                    stats[name] = registry.counter(name).value - before[name]
+    shutil.rmtree(os.path.join(root, "wal-2"))
+    for turn in ("bare", "wal"):
+        stats[f"{turn}_s"] = sum(t for k, t in stats["turns"] if k == turn)
+    stats["overhead"] = stats["wal_s"] / stats["bare_s"]
+    stats["commit_s"] = profs["wal"].as_dict()["store_commit"]["total_s"]
+    stats["profs"] = profs
+    rec(dir_files(wal))
+    want_changes = [list(c) for c in writer.changes]
+    want_heads = [writer.get_heads(d) for d in range(docs)]
+    want_patches = [canon(writer.get_patch(d)) for d in range(docs)]
+    rec(want_patches)
+    del writer
+
+    # per-doc sequential loads of a sample, then the batched cold start;
+    # the store it reattaches takes one more round below, in an active
+    # segment that round cannot fill (it is under the default bound when
+    # reopened, since every barrier rotates a segment at that bound)
+    reader = ShardStore(wal)
+    loads = sorted(reader.recovered_commits().items())[:sample]
+    reader.close()
+    clear_decode_caches()
+    t0 = time.perf_counter()
+    for doc, bufs in loads:
+        opset = OpSet()
+        opset.apply_changes(list(bufs))
+        opset.get_patch()
+        if sorted(opset.heads) != sorted(want_heads[doc]):
+            raise RuntimeError(f"store doc {doc}: the sequential load's "
+                               "heads differ from the writer's")
+    stats["sequential_s"] = time.perf_counter() - t0
+    stats["sample"] = len(loads)
+    clear_decode_caches()
+    t0 = time.perf_counter()
+    extra = sum(len(s[rounds]) for s in streams)
+    hydrated, store2 = open_farm(
+        wal, docs, capacity=capacity, device=device,
+        store_config=StoreConfig(
+            segment_bytes=StoreConfig().segment_bytes + 2 * extra))
+    _sync(device)
+    stats["batched_s"] = time.perf_counter() - t0
+    report = store2.report
+    stats["report"] = {"clean": report.clean, "segments": report.segments,
+                       "records": report.records, "changes": report.changes,
+                       "torn_bytes": report.torn_bytes,
+                       "corrupt_segments": len(report.corrupt_segments)}
+    if not report.clean or report.changes != docs * rounds:
+        raise RuntimeError(f"store recovery: {stats['report']}, want clean "
+                           f"with {docs * rounds} changes")
+    if [list(c) for c in hydrated.changes] != want_changes:
+        raise RuntimeError("the hydrated farm's change log differs")
+    got = [canon(hydrated.get_patch(d)) for d in range(docs)]
+    bad = [d for d in range(docs) if got[d] != want_patches[d]
+           or hydrated.get_heads(d) != want_heads[d]]
+    if bad:
+        raise RuntimeError(f"hydrated docs {bad[:8]} differ from the writer")
+    rec(got)
+
+    # a fresh replica catches up from the hydrated farm
+    replica = farm()
+    t0 = time.perf_counter()
+    stats["sweeps"] = sync_until_quiet(device, SyncFarm(hydrated),
+                                       [SyncFarm(replica)], docs, rec)
+    stats["catch_up_s"] = time.perf_counter() - t0
+    rec(check_converged([hydrated, replica], docs))
+    check_no_fallback(fallbacks, [replica], f"{what} (catch-up replica)")
+    del replica
+
+    # the hydrated farm keeps logging; then a torn tail: cut the active
+    # segment of a copy in the middle of its last frame
+    result = hydrated.apply_changes([[s[rounds]] for s in streams])
+    if result.quarantined:
+        raise RuntimeError(f"store delivery quarantined: {result.quarantined}")
+    for d, s in enumerate(streams):
+        want_changes[d].append(s[rounds])
+    store2.close()
+    check_no_fallback(fallbacks, [hydrated], f"{what} (hydrated farm)")
+    del hydrated
+    torn = os.path.join(root, "torn")
+    shutil.copytree(wal, torn)
+    active = [n for n in os.listdir(torn) if n.endswith(".open")]
+    if len(active) != 1:
+        raise RuntimeError(f"store: {len(active)} active segments")
+    path = os.path.join(torn, active[0])
+    offset, length, doc, n = last_commit_frame(path)
+    os.truncate(path, offset + length // 2)
+    torn_farm, store3 = open_farm(torn, docs, capacity=capacity,
+                                  device=device)
+    want_changes[doc] = want_changes[doc][:len(want_changes[doc]) - n]
+    if [list(c) for c in torn_farm.changes] != want_changes:
+        raise RuntimeError("the torn store did not recover exactly the "
+                           "commits before its torn frame")
+    stats["torn"] = {"doc": doc, "lost": n,
+                     "torn_bytes": store3.report.torn_bytes,
+                     "recovered": sum(len(c) for c in torn_farm.changes)}
+    if store3.report.torn_bytes != length // 2 or \
+            store3.report.corrupt_segments:
+        raise RuntimeError(f"torn store report: {vars(store3.report)}")
+    rec(canon(stats["torn"]))
+    store3.close()
+    check_no_fallback(fallbacks, [torn_farm], f"{what} (torn store)")
+    return stats
+
+
+def log_store(stats, docs, rounds, ops, card):
+    sweeps = stats["sweeps"]
+    log(f"phase 15 store: {docs} docs x {rounds} rounds x one {ops}-op "
+        f"change, card {card}")
+    turns = ", ".join(f"{k} {t:.3f} s" for k, t in stats["turns"])
+    log(f"  WAL cost in turns: {turns}; bare {stats['bare_s']:.3f} s, with "
+        f"the store {stats['wal_s']:.3f} s in all (ratio "
+        f"{stats['overhead']:.3f}); store_commit {stats['commit_s']:.3f} s "
+        f"({stats['commit_s'] / stats['wal_s']:.1%} of the WAL runs); "
+        f"full (gen 2) collections during the runs: {stats['gen2']}; the "
+        f"first WAL run: {stats['store.append.records']} append records, "
+        f"{stats['store.append.bytes']} bytes, {stats['store.fsyncs']} "
+        "fsyncs")
+    seq_rate = stats["sample"] / stats["sequential_s"]
+    log(f"  cold start: open_farm {stats['batched_s']:.3f} s "
+        f"({docs / stats['batched_s']:.1f} docs/s); per-doc sequential loads "
+        f"{stats['sequential_s']:.3f} s for {stats['sample']} docs "
+        f"({seq_rate:.2f} docs/s); recovery {stats['report']}; hydrated "
+        "patches equal the writer's for every doc")
+    log(f"  catch-up: a fresh replica converged in {len(sweeps)} sweeps "
+        f"({stats['catch_up_s']:.3f} s, "
+        f"{sum(sw.moved for sw in sweeps)} messages)")
+    log(f"  torn tail: the last frame (doc {stats['torn']['doc']}, "
+        f"{stats['torn']['lost']} change) cut mid-frame, "
+        f"{stats['torn']['torn_bytes']} torn bytes truncated, "
+        f"{stats['torn']['recovered']} changes recovered, exactly the acked "
+        "prefix")
+    log("  phase table (both WAL runs, host clock):")
+    for line in stats["profs"]["wal"].table().splitlines():
+        log("    " + line)
+    bare, wal = (stats["profs"][k].as_dict() for k in ("bare", "wal"))
+    deltas = {name: round(wal[name]["total_s"]
+                          - bare.get(name, {"total_s": 0.0})["total_s"], 4)
+              for name in wal}
+    log(f"  both WAL runs less both bare runs, by phase (s): {deltas}")
+
+
+# ---------------------------------------------------------------------- #
+# the serving front door (phase 16): LoadGen's clients against AmServer
+
+# phase 16: the JAX package's SERVE_r06.json shape (10,000 clients over
+# 1,024 docs) cut to 1,024 clients over 128 docs, keeping its ~8 clients
+# per doc; per client 2 edits of 4 ops spread over 2.0 simulated s
+SERVE_CLIENTS, SERVE_CLIENTS_PER_DOC = 1024, 8
+SERVE_EDITS, SERVE_OPS, SERVE_SPREAD = 2, 4, 2.0
+OCCUPANCY_FLOOR = 8
+
+
+def run_serve(device, clients, docs, seed, spread=SERVE_SPREAD, chaos=0.0,
+              store_root=None, record=None, prof=None):
+    """Phase 16: ``LoadGen``'s simulated clients (this package's
+    ``backend`` replicas on ``SyncSession``s, over chaos links at `chaos`)
+    against an ``AmServer`` over a ``TorchDocFarm`` on `device`, with a
+    ``ShardStore`` in `store_root` attached when given. The default
+    ``BatcherConfig`` and ``SessionConfig``, observability "metrics".
+    `record` collects every frame sent and delivered, the report, every
+    doc's whole patch and the store's files. Returns (farm, report); the
+    run zeroes this package's registry first, so the degraded walk's
+    counters read after it count this run alone."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+    from automerge_tpu_torch.serve import LoadConfig, LoadGen
+    from automerge_tpu_torch.store import ShardStore
+    from automerge_tpu_torch.testing import faults
+
+    per_doc_ops = -(-clients // docs) * SERVE_EDITS * SERVE_OPS + 8
+    capacity = 1 << (per_doc_ops - 1).bit_length()
+    farm = TorchDocFarm(docs, capacity=capacity, device=device)
+    store = None
+    if store_root is not None:
+        store = ShardStore(store_root)
+        farm.attach_store(store)
+    harness = LoadGen(farm, LoadConfig(
+        clients=clients, docs=docs, edits_per_client=SERVE_EDITS,
+        ops_per_edit=SERVE_OPS, spread=spread, chaos=chaos, seed=seed,
+        observability="metrics"))
+    frames = []
+
+    def frame(**ctx):
+        frames.append(bytes(ctx["frame"]))
+
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if record is not None:
+            stack.enter_context(faults.inject("chaos.send", frame))
+            stack.enter_context(faults.inject("chaos.deliver", frame))
+        stack.enter_context(use_profile(prof or PhaseProfile(enabled=False)))
+        # the run turns the whole registry on and off again: give the
+        # degraded walk's counters back their flags afterwards
+        stack.enter_context(counting_fallbacks())
+        report = harness.run()
+    _sync(device)
+    host_s = time.perf_counter() - t0
+    if store is not None:
+        store.close()
+    if record is not None:
+        record.extend(frames)
+        record.append(canon(report))
+        record.extend(canon(farm.get_patch(d)) for d in range(docs))
+        if store_root is not None:
+            record.append(dir_files(store_root))
+    report["host_s"], report["spread_s"] = host_s, spread
+    report["ops_per_s"] = (report["surviving_clients"] * SERVE_EDITS
+                           * SERVE_OPS / host_s)
+    return farm, report
+
+
+def check_serve(farm, report, clients, what):
+    """Right after `run_serve`: every client converged and survived, and
+    the degraded walk never ran in the run."""
+    if not report["converged"] or report["unconverged_clients"] or \
+            report["surviving_clients"] != clients:
+        raise RuntimeError(f"{what}: {report['unconverged_clients']} clients "
+                           f"unconverged, {report['surviving_clients']} of "
+                           f"{clients} surviving")
+    check_no_fallback(dict.fromkeys(FALLBACK_COUNTERS, 0), [farm], what)
+
+
+def log_serve(report, clients, docs, prof, card):
+    lat, adm = report["latency_ms"], report["admission"]
+    floor = "at or above" if report["occupancy_mean"] >= OCCUPANCY_FLOOR \
+        else "BELOW"
+    log(f"phase 16 serve: {clients} clients over {docs} docs, "
+        f"{SERVE_EDITS} edits of {SERVE_OPS} ops each spread over "
+        f"{report['spread_s']} simulated s, 4 tenants, no chaos, card {card}")
+    log(f"  converged {report['converged']}, {report['surviving_clients']} "
+        f"clients surviving; {report['dispatches']} dispatches, mean flush "
+        f"occupancy {report['occupancy_mean']} docs ({floor} the floor of "
+        f"{OCCUPANCY_FLOOR}); admission {adm}; {report['changes_committed']} "
+        f"changes committed")
+    log(f"  latency (simulated ms, log2 buckets): p50 {lat['p50']}, p95 "
+        f"{lat['p95']}, p99 {lat['p99']} over {lat['samples']} samples; "
+        f"{report['simulated_s']} simulated s; host wall "
+        f"{report['host_s']:.3f} s, served {report['ops_per_s']:.0f} ops/s "
+        "(ops over host wall)")
+    # the served ops/s above is bounded by the simulated fleet on the same
+    # host; the farm's own phases are the server's share of that wall
+    farm_s = sum(t for path, (t, _) in prof.totals_by_path().items()
+                 if "/" not in path and not path.startswith("backend."))
+    log(f"  the served farm's phases (every top-level span but the clients' "
+        f"backend.*): {farm_s:.3f} s, {farm_s / report['host_s']:.1%} of the "
+        "host wall")
+    log("  phase table (served farm and clients, host clock):")
+    for line in prof.table().splitlines():
+        log("    " + line)
+
+
+def check_launched(table, launches, rec_build, rec_query, key, what):
+    """Both Bloom kernels launched in the phase's run; each is then held
+    bit-exact against its plain version at its largest launch there, and
+    the phase's counts land under `key` in the kernel table's rows."""
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{what} never launched {name}")
+    log_bloom_shapes(rec_build, rec_query)
+    _, _, build_err = check_build(*rec_build.args)
+    query_err = check_query(*rec_query.args)
+    for row, n, err in zip(table["kernels"],
+                           (launches["bloom_build"], launches["bloom_query"]),
+                           (build_err, query_err)):
+        row[key] = {"launches": n, "max_abs_err": err}
+    log(f"  Bloom kernels at this phase's largest launches: bit-exact "
+        f"(build {build_err}, query {query_err})")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=512)
@@ -1825,9 +2293,11 @@ def main(argv=None) -> int:
     parser.add_argument("--ops", type=int, default=MAP_OPS)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--text-docs", type=int, default=1024)
-    parser.add_argument("--farm-text-docs", type=int, default=6)
+    parser.add_argument("--farm-text-docs", type=int, default=3)
     parser.add_argument("--v2-docs", type=int, default=128)
     parser.add_argument("--fault-docs", type=int, default=64)
+    parser.add_argument("--store-docs", type=int, default=STORE_DOCS)
+    parser.add_argument("--serve-clients", type=int, default=SERVE_CLIENTS)
     args = parser.parse_args(argv)
 
     for name, value in decode_cache_env(args.docs, args.replicas,
@@ -1853,8 +2323,11 @@ def main(argv=None) -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-14 on the card (see the module docstring); raises on the
+    """Phases 1-16 on the card (see the module docstring); raises on the
     first check that fails."""
+    import shutil
+    import tempfile
+
     import torch
 
     from automerge_tpu_torch import kernels
@@ -1946,7 +2419,9 @@ def run_phases(args) -> int:
     log(f"  launch floor (graph replay of a 1-element add): {floor_ms:.5f} "
         "ms")
     log_bloom_rows(table["kernels"], None)
-    del farms
+    # phase 8 reads the buffers; the farms' host objects would otherwise
+    # stay live through every later phase (and its garbage collections)
+    del farms, stats["syncs"]
 
     # 4. the same scenario at 16 docs, then phase 11's mixed v1/v2 sweep
     # and phase 13's sessions: card vs CPU, byte for byte
@@ -1964,13 +2439,27 @@ def run_phases(args) -> int:
             dev, SESSION_DOCS, args.seed, record=rec)
         check_sessions(f4, clients, pairs, frames)
         check_no_fallback(fallbacks, [f4], f"phase 4 ({dev})")
+        root = tempfile.mkdtemp(prefix="chip-smoke-store-")
+        try:
+            with counting_fallbacks():
+                run_store(dev, 16, STORE_ROUNDS, STORE_OPS, args.seed, root,
+                          sample=2, record=rec, what=f"phase 4 ({dev})")
+            check_no_fallback(fallbacks, [], f"phase 4 ({dev})")
+            f4, report = run_serve(dev, 64, 16, args.seed, chaos=0.3,
+                                   store_root=os.path.join(root, "serve"),
+                                   record=rec)
+            check_serve(f4, report, 64, f"phase 4 ({dev})")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     if on_card != on_cpu:
         first = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
                      if a != b) if len(on_card) == len(on_cpu) else "length"
         raise RuntimeError(f"card and CPU runs differ (first at {first})")
     log(f"phase 4 card vs CPU at 16 docs (v1 sync, mixed v1/v2 sync, 16 "
-        f"supervised channels): {len(on_card)} messages, patches, frames "
-        f"and saved sessions identical ({time.perf_counter() - t0:.2f} s)")
+        f"supervised channels, a store round trip with a torn tail, 64 "
+        f"served clients at 30 % chaos with a store attached): "
+        f"{len(on_card)} messages, patches, frames, saved sessions, reports "
+        f"and store files identical ({time.perf_counter() - t0:.2f} s)")
 
     del f4, clients, pairs
 
@@ -2183,7 +2672,7 @@ def run_phases(args) -> int:
         raise RuntimeError("the long-history sync queried no live filter "
                            "with more than 256 candidates")
     long_server = lfarms[0]  # phase 12 reuses its loaded history
-    del lfarms
+    del lfarms, lstats["syncs"]
     # the kernels at phase 10's largest launches: exactness, times, bounds
     check_build(*rec_build10.args)
     check_query(*rec_query10.args)
@@ -2317,6 +2806,43 @@ def run_phases(args) -> int:
         f"equal to it after the next call; counters {fstats['round1']}; "
         f"then every dispatch failing: nobody blamed, {fstats['round3']}; "
         f"{fstats['s']:.3f} s, card {card}")
+
+    # 15. the store on the card: WAL cost, batched cold start, recovery
+    t0 = time.perf_counter()
+    bk.reset_launch_counts()
+    fallbacks = fallback_counts()
+    root = tempfile.mkdtemp(prefix="chip-smoke-store-")
+    try:
+        with recorded_bloom_launches() as (rec_build15, rec_query15), \
+                counting_fallbacks():
+            sstats = run_store(device, args.store_docs, STORE_ROUNDS,
+                               STORE_OPS, args.seed, root)
+        launches15 = dict(bk.LAUNCHES)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_no_fallback(fallbacks, [], "phase 15")
+    log_store(sstats, args.store_docs, STORE_ROUNDS, STORE_OPS, card)
+    log(f"  whole phase {time.perf_counter() - t0:.3f} s; kernel launches: "
+        f"{launches15}")
+    check_launched(table, launches15, rec_build15, rec_query15, "store",
+                   "phase 15")
+
+    # 16. the serving front door on the card
+    t0 = time.perf_counter()
+    serve_docs = max(1, args.serve_clients // SERVE_CLIENTS_PER_DOC)
+    prof16 = PhaseProfile()
+    bk.reset_launch_counts()
+    with recorded_bloom_launches() as (rec_build16, rec_query16):
+        sfarm, report = run_serve(device, args.serve_clients,
+                                  serve_docs, args.seed, prof=prof16)
+    launches16 = dict(bk.LAUNCHES)
+    check_serve(sfarm, report, args.serve_clients, "phase 16")
+    log_serve(report, args.serve_clients, serve_docs, prof16, card)
+    log(f"  whole phase {time.perf_counter() - t0:.3f} s; kernel launches: "
+        f"{launches16}")
+    check_launched(table, launches16, rec_build16, rec_query16, "serve",
+                   "phase 16")
+    del sfarm
 
     log(card)
     log(json.dumps(table))

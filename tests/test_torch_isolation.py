@@ -1,8 +1,10 @@
 """The port stands alone: importing automerge_tpu_torch (its farm, its
 SyncFarm, its sequential engine, text engine and kernels, its backend,
-sync v2, sessions, fault points, flight recorder and fingerprint index
-included) or chip_smoke.py loads neither JAX nor anything of the JAX package, and its
-entry points refuse to fall back to the CPU when no card is present."""
+sync v2, sessions, fault points, flight recorder and fingerprint index,
+its store, serving front door, chaos transport and request-flow
+observability included) or chip_smoke.py loads neither JAX nor anything
+of the JAX package, and its entry points refuse to fall back to the CPU
+when no card is present."""
 import subprocess
 import sys
 from pathlib import Path
@@ -18,10 +20,16 @@ import automerge_tpu_torch
 import automerge_tpu_torch.backend
 import automerge_tpu_torch.carry
 import automerge_tpu_torch.kernels
+import automerge_tpu_torch.obs.export
 import automerge_tpu_torch.obs.flight
+import automerge_tpu_torch.obs.scope
+import automerge_tpu_torch.obs.slo
 import automerge_tpu_torch.opset
+import automerge_tpu_torch.serve
+import automerge_tpu_torch.store
 import automerge_tpu_torch.sync_session
 import automerge_tpu_torch.sync_v2
+import automerge_tpu_torch.testing.chaos
 import automerge_tpu_torch.testing.faults
 import automerge_tpu_torch.tpu.fingerprint
 import automerge_tpu_torch.tpu.decode

@@ -15,7 +15,7 @@ from automerge_tpu.tpu.farm import TpuDocFarm
 from automerge_tpu.tpu.sync_farm import SyncFarm as JaxSyncFarm
 from automerge_tpu_torch import SyncFarm, TorchDocFarm
 from automerge_tpu_torch.carry import doc_from_jax_export
-from automerge_tpu_torch.errors import NotPortedError, PackingLimitError
+from automerge_tpu_torch.errors import PackingLimitError
 
 
 def canon(x):
@@ -217,11 +217,15 @@ def test_list_changes_raise_before_anything_commits():
                 same(farm.get_patch(d), jax.get_patch(d))
 
 
-def test_sync_v2_raises_not_ported():
+def test_sync_v2_raises_not_ported(tmp_path):
     """Sync v2 channels and messages run (tests/test_torch_sync_v2.py holds
-    them against the JAX SyncFarm); only the persistence tier still raises
-    ``NotPortedError``, from the farm and from the fingerprint index. The
-    name dates from the slice in which v2 raised too."""
+    them against the JAX SyncFarm), and so does the persistence tier:
+    ``attach_store`` logs every committed delivery to a ``ShardStore`` and
+    ``rebuild_from_store`` seeds the fingerprint index from its footer
+    hashes. The name dates from the slices in which v2, and then the
+    store, raised ``NotPortedError``."""
+    from automerge_tpu_torch.store import ShardStore
+
     farm = TorchDocFarm(1, capacity=32, device="cpu")
     sync = SyncFarm(farm)
     ((state, msg),) = sync.generate_messages([(0, SyncFarm.init_state())],
@@ -229,12 +233,21 @@ def test_sync_v2_raises_not_ported():
     assert msg[0] == 0x45
     # a malformed v2 frame is rejected in place, like a malformed v1 one
     assert sync.receive_messages([(0, state, b"\x45\x00")]) == [(state, None)]
-    with pytest.raises(NotPortedError) as err:
-        farm.attach_store(object())
-    assert err.value.slice_name == "store"
-    with pytest.raises(NotPortedError) as err:
-        sync.fingerprints.rebuild_from_store(object())
-    assert err.value.slice_name == "store"
+    root = str(tmp_path / "shard")
+    store = ShardStore(root)
+    farm.attach_store(store)
+    buf = make_change("aaaaaaaa", 1, 1, [], [
+        {"action": "set", "obj": "_root", "key": "x", "datatype": "uint",
+         "value": 1, "pred": []}])
+    farm.apply_changes([[buf]])
+    store.rotate()
+    store.close()
+    reopened = ShardStore(root)
+    assert reopened.recovered_commits() == {0: [buf]}
+    sync.fingerprints.rebuild_from_store(reopened)
+    assert sync.fingerprints.fingerprint_ranges(
+        [(0, "0" * 64, "f" * 64)])[0][0] == 1
+    reopened.close()
 
 
 def test_carry_refuses_list_documents():
