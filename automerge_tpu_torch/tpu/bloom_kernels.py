@@ -23,6 +23,7 @@ import torch
 from ..kernels import check_tensor as _check
 from ..kernels import load, stream_ptr
 from ..sync import BITS_PER_ENTRY, NUM_PROBES
+from .jitprof import profiled_program
 
 WORD_BITS = 32
 _U32 = 0xFFFFFFFF
@@ -136,6 +137,7 @@ def build_plan(batch: int, num_entries: int, num_words: int,
                                 *_device_limits(lib, device))
 
 
+@profiled_program("kernel.bloom_build")
 def bloom_build(xyz, counts, num_words: int):
     """Builds B Bloom filters: xyz [B, E, 3] int32 (uint32 bits), counts
     [B] int32 -> (words [B, num_words] int32 bits, modulo [B] int32; two
@@ -175,6 +177,7 @@ def bloom_build(xyz, counts, num_words: int):
     return words, modulo
 
 
+@profiled_program("kernel.bloom_query")
 def bloom_query(words, modulo, counts, query_xyz):
     """Tests C candidate hashes against each of B filters: words [B, W]
     int32 bits, modulo and counts [B] int32, query_xyz [B, C, 3] int32

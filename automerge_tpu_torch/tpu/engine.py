@@ -35,8 +35,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs.flight import get_flight
 from ..obs.metrics import get_metrics
+from ..obs.prof import get_observatory
 from ..testing.faults import fire as _fault_point
+from .jitprof import profiled_program
 
 PAD_KEY = 2**31 - 1  # int32 max
 ACTOR_BITS = 20
@@ -57,10 +60,50 @@ _M_DISPATCHES = _METRICS.counter(
     "engine.device.dispatches",
     "batched device programs dispatched (merge + visibility)",
 )
+_M_JIT_HITS = _METRICS.counter(
+    "engine.jit.cache_hits",
+    "dispatches at a shape bucket the program has dispatched before",
+)
+_M_JIT_RECOMPILES = _METRICS.counter(
+    "engine.jit.recompiles",
+    "dispatches at a shape bucket new to the program (obs/prof.py)",
+)
 _M_STATE_GROWS = _METRICS.counter(
     "engine.state.grows",
     "capacity doublings of the device op slab",
 )
+
+# flight-recorder hook (obs/flight.py): recompiles and slab growth are the
+# two engine events worth a postmortem timeline entry — a steady-state
+# recompile storm or a surprise slab doubling explains a latency cliff.
+_FLIGHT = get_flight()
+
+# amprof observatory (obs/prof.py): every program below registers a named
+# ProfiledProgram via tpu/jitprof.py, so new shape buckets carry program
+# identity and dispatches get per-program latency attribution.
+_OBSERVATORY = get_observatory()
+
+
+def _dispatch(prog, *args, **kwargs):
+    """Runs a named profiled program (tpu/jitprof.py), classifying the
+    call as a cache hit or a recompile by whether its shape bucket is new
+    to the program (the torch meaning of a compile, obs/prof.py). This is
+    the single device-dispatch funnel for the engine, so the
+    recompile-storm and dispatch-count metrics cover every merge and
+    visibility program. Per-program attribution (dispatch tallies, shape
+    buckets, the ``engine.recompile`` flight event with program identity)
+    lives in ``ProfiledProgram.call_profiled``; with both metrics and the
+    observatory disabled this degrades to a plain call."""
+    if not _METRICS.enabled and not _OBSERVATORY.enabled:
+        return prog.fn(*args, **kwargs)
+    out, grew, _dt = prog.call_profiled(args, kwargs)
+    if _METRICS.enabled:
+        _M_DISPATCHES.inc()
+        if grew > 0:
+            _M_JIT_RECOMPILES.inc(grew)
+        else:
+            _M_JIT_HITS.inc()
+    return out
 
 
 def pack_opid(counter, actor):
@@ -179,6 +222,7 @@ def merge_docs(s_key, s_op, s_action, s_value, s_pred, s_over,
     return out_key, out_op, out_action, out_value, out_pred, out_over
 
 
+@profiled_program("engine.visible_cmp")
 def visible_docs(key, op, action, value, pred, over, cmp):
     """Per-row visibility of each document: the batched form of the JAX
     package's ``_visible_state_one_doc`` (engine.py:260). All columns are
@@ -235,6 +279,7 @@ def visible_docs(key, op, action, value, pred, over, cmp):
     return key, op, visible_set, winner, value_total
 
 
+@profiled_program("engine.gather_rows")
 def gather_rows(visible, totals, idx):
     """Row gather for the incremental readback path: `idx` is a flat
     tensor of ``doc * width + row`` indices."""
@@ -365,6 +410,12 @@ class BatchedMapEngine:
         ]
         if self.pages.ensure(sum(e for e in extra if e > 0)):
             self._grow()
+            # the merge path's event, as in the JAX engine (adopt_rows
+            # grows the slab without one there too)
+            if _FLIGHT.enabled:
+                _FLIGHT.record("engine.slab.grow",
+                               pages=self.pages.num_pages,
+                               rows=self.pages.num_pages * self.pages.page_size)
         fresh: list = []
         new_tables = []
         for t, e in zip(old_tables, extra):
@@ -377,9 +428,8 @@ class BatchedMapEngine:
         dest = self._page_map(new_tables, width, a_pad,
                               fill=self.pages.num_pages)
         try:
-            _M_DISPATCHES.inc()
-            paged_apply_ops(self.slab, gidx, changes, dest,
-                            page_size=self.pages.page_size)
+            _dispatch(paged_apply_ops, self.slab, gidx, changes, dest,
+                      page_size=self.pages.page_size)
         except Exception:
             # nothing committed: hand the delta pages back so a failed
             # dispatch leaks no slab capacity
@@ -431,14 +481,13 @@ class BatchedMapEngine:
         a_pad = self._pow2(len(docs_t))
         gidx = self._page_map([self.page_table[d] for d in docs_t], width,
                               a_pad, fill=0)
-        _M_DISPATCHES.inc()
         if actor_rank is None:
-            out = paged_visible_plain(self.slab, gidx,
-                                      page_size=self.pages.page_size)
+            out = _dispatch(paged_visible_plain, self.slab, gidx,
+                            page_size=self.pages.page_size)
         else:
             rank = torch.as_tensor(np.asarray(actor_rank)).to(self.device)
-            out = paged_visible_ranked(self.slab, gidx, rank,
-                                       page_size=self.pages.page_size)
+            out = _dispatch(paged_visible_ranked, self.slab, gidx, rank,
+                            page_size=self.pages.page_size)
         out = tuple(a[: len(docs_t)] for a in out)
         if len(self._vis_memo) > 16:
             self._vis_memo.clear()
@@ -474,8 +523,7 @@ class BatchedMapEngine:
             actor_rank, docs=docs_t
         )
         idx, n = self._flat_index(plan, visible.shape[1])
-        _M_DISPATCHES.inc()
-        v, t = _to_host(*gather_rows(visible, totals, idx))
+        v, t = _to_host(*_dispatch(gather_rows, visible, totals, idx))
         return v[:n], t[:n]
 
     def read_patch_columns(self, plan, actor_rank):
@@ -501,9 +549,9 @@ class BatchedMapEngine:
         cut = np.full(idx.shape[0], -1, np.int64)  # pad rows never emit
         cut[:n] = np.concatenate([c for _, _, c in plan])
         rank = torch.as_tensor(np.asarray(actor_rank)).to(self.device)
-        _M_DISPATCHES.inc()
-        v, t, e = _to_host(*patch_column_rows(
-            visible, totals, op, rank, idx, torch.from_numpy(cut).to(self.device)
+        v, t, e = _to_host(*_dispatch(
+            patch_column_rows, visible, totals, op, rank, idx,
+            torch.from_numpy(cut).to(self.device),
         ))
         return v[:n], t[:n], e[:n]
 
@@ -565,9 +613,8 @@ class BatchedMapEngine:
             out[:n] = col
             return torch.from_numpy(out).to(self.device)
 
-        _M_DISPATCHES.inc()
-        paged_adopt_rows(
-            self.slab, torch.from_numpy(dest).to(self.device),
+        _dispatch(
+            paged_adopt_rows, self.slab, torch.from_numpy(dest).to(self.device),
             pad(key, PAD_KEY, np.int32), pad(op, 0, np.int64),
             pad(action, 0, np.int32), pad(value, 0, np.int64),
             pad(pred, -1, np.int64), pad(over, False, np.bool_),

@@ -35,6 +35,7 @@ import torch
 from ..columnar import decode_change_meta_cached
 from ..errors import SyncProtocolError
 from ..sync import HASH_SIZE
+from .jitprof import profiled_program
 
 #: one SHA-256 hash as big-endian uint32 words
 HASH_WORDS = HASH_SIZE // 4
@@ -47,6 +48,7 @@ def _pow2(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
+@profiled_program("sync.fingerprint_ranges")
 def reduce_ranges(words, starts, ends):
     """XOR-reduces each row's [start, end) span: words [B, E, 8] int32
     (uint32 bit patterns, E a power of two), starts/ends [B] int32 ->

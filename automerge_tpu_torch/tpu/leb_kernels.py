@@ -18,6 +18,7 @@ import itertools
 import torch
 
 from ..kernels import check_tensor, load, stream_ptr
+from .jitprof import profiled_program
 
 #: launches of the kernel on the card (the CPU path never counts)
 LAUNCHES = {"leb128_segment_sum": 0}
@@ -95,6 +96,7 @@ def _segment_sum(planes, seg_ids, num_segments: int):
     return out, flag, gen
 
 
+@profiled_program("kernel.leb128_segment_sum")
 def leb128_segment_sum(planes, seg_ids, num_segments: int):
     """Per-varint payload-plane sums (see ``leb128_segment_sum_plain`` for
     the function). The planes must hold integers below 2^14 and every

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from .engine import PAD_KEY, merge_docs, remap_opid_actors, visible_docs
-from .rga import patch_emit_columns
+from .jitprof import profiled_program
 
 
 class SlabState(NamedTuple):
@@ -148,6 +148,7 @@ def _write_pages(slab: SlabState, dest_pages, cols, page_size: int) -> None:
         col.view(-1, page_size)[dest] = vals.reshape(-1, page_size)[keep]
 
 
+@profiled_program("paging.apply_ops")
 def paged_apply_ops(slab: SlabState, gather_pages, changes, dest_pages, *,
                     page_size: int) -> SlabState:
     """applyChanges over the active documents: gather their pages, merge
@@ -160,6 +161,7 @@ def paged_apply_ops(slab: SlabState, gather_pages, changes, dest_pages, *,
     return slab
 
 
+@profiled_program("paging.probe_ops")
 def paged_probe_ops(slab: SlabState, gather_pages, changes, *,
                     page_size: int):
     """The merge WITHOUT the write-back: probes run a suspect subset
@@ -168,39 +170,48 @@ def paged_probe_ops(slab: SlabState, gather_pages, changes, *,
                       *changes)
 
 
+@profiled_program("paging.visible_plain")
 def paged_visible_plain(slab: SlabState, gather_pages, *, page_size: int):
     key, op, action, value, pred, over = _gather_pages(
         slab, gather_pages, page_size
     )
-    return visible_docs(key, op, action, value, pred, over, op)
+    # the bare function: the JAX paged programs run the per-doc visibility
+    # unprofiled, so a paged dispatch is no engine.visible_cmp dispatch
+    return visible_docs.fn(key, op, action, value, pred, over, op)
 
 
+@profiled_program("paging.visible_ranked")
 def paged_visible_ranked(slab: SlabState, gather_pages, actor_rank, *,
                          page_size: int):
     key, op, action, value, pred, over = _gather_pages(
         slab, gather_pages, page_size
     )
     cmp = remap_opid_actors(op, actor_rank)
-    return visible_docs(key, op, action, value, pred, over, cmp)
+    return visible_docs.fn(key, op, action, value, pred, over, cmp)
 
 
+@profiled_program("paging.patch_column_rows")
 def patch_column_rows(visible, totals, op, actor_rank, idx, cut):
     """Row gather + patch emission for the scoped readback: `visible`,
     `totals`, `op` are the paged visibility outputs (``[A_pad, W]``), `idx`
     flat ``doc * W + row`` indices, `cut` each row's walk cutoff as a
     rank-packed int64 (``-1`` = never emit, int64 max = walk to the end
     of the key run). Returns (visible, totals, emit) rows."""
+    from .rga import patch_emit_columns  # rga imports engine: bind lazily
+
     v = visible.reshape(-1)[idx]
     t = totals.reshape(-1)[idx]
     lam = remap_opid_actors(op.reshape(-1)[idx], actor_rank)
     return v, t, patch_emit_columns(v, lam, cut)
 
 
+@profiled_program("paging.dense_view")
 def paged_dense_view(slab: SlabState, gather_pages, *, page_size: int):
     """Dense [D, W] gather of all six columns."""
     return _gather_pages(slab, gather_pages, page_size)
 
 
+@profiled_program("paging.adopt_rows")
 def paged_adopt_rows(slab: SlabState, dest_pages, key, op, action, value,
                      pred, over, *, page_size: int) -> SlabState:
     """Installs externally prepared rows (a migrated document) into freshly

@@ -34,6 +34,7 @@ import torch
 
 from ..errors import PackingLimitError
 from .engine import remap_opid_actors
+from .jitprof import profiled_program
 
 # Packed opIds are (counter << 20 | actor), 44 significant bits. The
 # sibling-sort composite packs (parent+1) above them, so documents are
@@ -136,6 +137,7 @@ def _rga_rank_docs(parent, opid, valid):
     return rank_sorted.gather(1, inv_order).to(torch.int32)
 
 
+@profiled_program("rga.rank")
 def batched_rga_rank(parent, opid, valid, actor_rank):
     """Document-order ranks for a batch of list objects.
 

@@ -18,6 +18,7 @@ import numpy as np
 
 from ..codecs import Encoder, hex_to_bytes
 from ..obs.metrics import get_metrics
+from ..obs.prof import get_observatory
 from ..sync import BITS_PER_ENTRY, NUM_PROBES
 from .bloom_kernels import WORD_BITS, bloom_build, bloom_query, filter_modulo
 
@@ -60,19 +61,16 @@ def pack_hashes(hash_lists, width=None):
     return xyz, counts
 
 
-def build_filters(xyz, counts, num_words: int):
-    """Builds B Bloom filters at once. xyz: [B, E, 3] int32 tensor of
-    uint32 bits; counts: [B] int32. Returns (words [B, W] int32 bits,
-    modulo [B] int32) on the inputs' device."""
-    return bloom_build(xyz, counts, num_words)
-
-
-def query_filters(words, modulo, counts, query_xyz):
-    """Tests C candidate hashes against each of B filters in one launch.
-    query_xyz: [B, C, 3] int32 bits. Returns contained: [B, C] bool (False
-    for empty filters, matching BloomFilter.contains_hash on zero
-    entries)."""
-    return bloom_query(words, modulo, counts, query_xyz)
+#: The JAX package's filter programs are the CUDA kernels here: each JAX
+#: name is bound to the kernel wrapper's own program, so a launch is
+#: counted and bucketed once (tpu/jitprof.py's roster). ``build_filters``
+#: builds B Bloom filters at once (xyz [B, E, 3] int32 bits, counts [B]
+#: int32 -> words [B, W] int32 bits, modulo [B] int32); ``query_filters``
+#: tests C candidate hashes against each of B filters in one launch
+#: (query_xyz [B, C, 3] int32 bits -> [B, C] bool, False for empty filters,
+#: matching BloomFilter.contains_hash on zero entries).
+build_filters = get_observatory().alias("sync.build_filters", bloom_build)
+query_filters = get_observatory().alias("sync.query_filters", bloom_query)
 
 
 def filters_to_bytes(words, modulo, counts):

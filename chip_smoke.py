@@ -27,10 +27,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``kernel_times``);
 4. the same scenario at 16 documents, then phase 11's mixed v1/v2 sync
    and phase 13's supervised channels at 16 documents, phase 15's store
-   at 16 documents, and phase 16's serving at 64 clients over 16 docs with
-   30 % chaos and a store attached, once on the card and once on the CPU:
-   every sync message, patch, session frame, saved session, load report
-   and store file must be byte-identical;
+   at 16 documents, phase 16's serving at 64 clients over 16 docs with
+   30 % chaos and a store attached, and phase 17's API clients at 8
+   documents, once on the card and once on the CPU: every sync message,
+   patch, session frame, saved session, load report, store file and
+   ``save()`` must be byte-identical;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
    card, bit-exact, at edge inputs (``segsum_edge_inputs``), each of which
    must take the pass its ids call for (the sorted pass, or the general
@@ -106,9 +107,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    client over 2.0 simulated s, the default batcher and session settings.
    Every client must converge (``run_serve``). Phases 15 and 16 hold both
    Bloom kernels bit-exact against their plain versions at their largest
-   launches there.
+   launches there;
+17. the public API (``--api-docs``, 128): per doc 4 API clients
+   (``automerge_tpu_torch.init`` with fixed actor ids) share client 0's
+   seed change (a list, a Text, a Counter, a Table), then make 8 rounds
+   of one 16-op ``change()`` each (root-map sets, list and Text inserts
+   and deletes, a Counter increment, from round 2 a Table row; the time
+   pinned). After each round every client's ``get_changes`` since its
+   last push goes into one ``TorchDocFarm`` on the card in one
+   ``apply_changes`` delivery, and every client syncs with the farm over
+   the Bloom protocol (``generate_sync_message``/``receive_sync_message``
+   against ``SyncFarm``) until no message moves (``run_api``). Every
+   client's saved document must equal the farm's whole-document patch read
+   through ``Frontend.apply_patch``, with the farm's heads, and its live
+   document may differ from its saved one only at root keys where that
+   holds a conflict, by another of the conflict's values; the phase runs
+   with the program observatory on, and its ``kernel.bloom_*`` dispatch
+   counts must equal the wrappers' launch counts;
+18. ``python -m automerge_tpu_torch.obs --docs 64 --rounds 4 --json`` in a
+   subprocess on the card: rc 0, a span tree, and a program table with
+   both Bloom kernels and ``paging.apply_ops`` dispatched; then
+   ``--ledger`` renders a two-record ledger in a temp directory and
+   ``--diff -2 -1`` diffs it.
 
-Every fault-free phase (3, 4, 6, 7, 10-13, 15, 16) fails if the degraded walk served
+Every fault-free phase (3, 4, 6, 7, 10-13, 15-17) fails if the degraded walk served
 a document (``farm.fallback.calls`` moved, or a farm has ``degraded``
 docs): only phase 14's injected fault may take it.
 
@@ -1705,23 +1727,24 @@ class LargestLaunch:
 
 @contextlib.contextmanager
 def recorded_bloom_launches():
-    """Routes sync_batch's two Bloom entries through `LargestLaunch`
-    recorders while the block runs; yields (build, query). Build shapes
-    are (B, E, W), query shapes (B, C, W)."""
-    from automerge_tpu_torch.tpu import sync_batch
+    """Routes the two Bloom kernel programs (``kernel.bloom_build`` and
+    ``kernel.bloom_query``; the sync path calls them by their ``sync.*``
+    names) through `LargestLaunch` recorders while the block runs; yields
+    (build, query). Build shapes are (B, E, W), query shapes (B, C, W)."""
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
 
     build = LargestLaunch(
-        sync_batch.bloom_build,
+        bk.bloom_build.fn,
         lambda xyz, counts, w: ((xyz.shape[0], xyz.shape[1], w), counts))
     query = LargestLaunch(
-        sync_batch.bloom_query,
+        bk.bloom_query.fn,
         lambda words, modulo, counts, q: (
             (q.shape[0], q.shape[1], words.shape[1]), counts))
-    sync_batch.bloom_build, sync_batch.bloom_query = build, query
+    bk.bloom_build.fn, bk.bloom_query.fn = build, query
     try:
         yield build, query
     finally:
-        sync_batch.bloom_build, sync_batch.bloom_query = build.fn, query.fn
+        bk.bloom_build.fn, bk.bloom_query.fn = build.fn, query.fn
 
 
 @contextlib.contextmanager
@@ -1741,13 +1764,19 @@ def recorded_reductions():
 
 
 @contextlib.contextmanager
-def counted_generate_calls():
+def counted_generate_calls(count=None):
     """Checks ``SyncFarm.generate_messages`` call by call: a call whose v2
     channels planned fingerprint queries must dispatch exactly one
     reduction, any other call none. Yields a tally: the calls with
     queries, the most v2 channels with queries in one call, and the calls
-    that broke the rule as (channels with queries, reductions)."""
+    that broke the rule as (channels with queries, reductions).
+    `count(sync_farm)` reads the reductions so far (default: the farm's
+    fingerprint index's own count)."""
     from automerge_tpu_torch.tpu import sync_farm
+
+    if count is None:
+        def count(s):
+            return s.fingerprints.dispatches
 
     tally = {"with_queries": 0, "most_channels": 0, "wrong": []}
     plain_generate = sync_farm.SyncFarm.generate_messages
@@ -1761,10 +1790,10 @@ def counted_generate_calls():
 
     def generate(self, channels, protocols=None):
         planned.clear()
-        before = self.fingerprints.dispatches
+        before = count(self)
         out = plain_generate(self, channels, protocols)
         with_queries = sum(1 for n in planned if n)
-        ran = self.fingerprints.dispatches - before
+        ran = count(self) - before
         if ran != (1 if with_queries else 0):
             tally["wrong"].append((with_queries, ran))
         if with_queries:
@@ -2267,6 +2296,265 @@ def log_serve(report, clients, docs, prof, card):
         log("    " + line)
 
 
+# ---------------------------------------------------------------------- #
+# the public API (phase 17): single-document clients through
+# ``init``/``change``/sync against one farm
+
+# phase 17: documents, API clients per document, rounds (one change per
+# client per round), ops per change, and the changes' pinned time
+# (seconds; the time is part of a change's bytes)
+API_DOCS, API_CLIENTS, API_ROUNDS, API_OPS = 128, 4, 8, 16
+API_TIME = 1_700_000_000
+# phase 18: the obs CLI's documents per farm and change rounds
+CLI_DOCS, CLI_ROUNDS = 64, 4
+
+
+def api_actor(d, c):
+    """Client `c` of doc `d`: a fixed 16-byte actor id."""
+    return f"{d:08x}{c + 1:02x}" + "a5" * 11
+
+
+def api_seed(api, d):
+    """Doc `d`'s first change, by client 0: the shared objects every
+    client edits (a list, a Text, a Counter and a Table) and a title."""
+    return api.change(
+        api.init(api_actor(d, 0)), {"time": API_TIME, "message": "seed"},
+        lambda x: x.update({"title": f"doc {d}", "items": [],
+                            "text": api.Text(), "count": api.Counter(0),
+                            "rows": api.Table()}))
+
+
+def api_edit(api, doc, rng, r, c):
+    """Client `c`'s change of round `r` (from 1): API_OPS ops — from round 2
+    on a Table row (3 ops), a Counter increment, a list insert and, past 4
+    items, a list delete, a 3-character Text insert and, past 6
+    characters, a Text delete, and sets on the root map for the rest."""
+    n_items, n_text = len(doc["items"]), len(doc["text"])
+    chars = rng.choices(LETTERS, k=3)
+    used = (3 if r >= 2 else 0) + 1 + 1 + (n_items >= 4) + 3 + (n_text >= 6)
+    keys = rng.sample(range(32), API_OPS - used)
+    at_item, at_text = rng.randrange(n_items + 1), rng.randrange(n_text + 1)
+    del_item, del_text = rng.randrange(n_items + 1), rng.randrange(n_text + 3)
+
+    def edit(x):
+        if r >= 2:
+            x["rows"].add({"round": r, "client": c})
+        x["count"].increment(1)
+        x["items"].insert(at_item, f"{c}.{r}")
+        if n_items >= 4:
+            x["items"].delete_at(del_item)
+        x["text"].insert_at(at_text, *chars)
+        if n_text >= 6:
+            x["text"].delete_at(del_text)
+        for k in keys:
+            x[f"k{k}"] = f"{c}.{r}.{k}"
+
+    return api.change(doc, {"time": API_TIME + r, "message": f"round {r}"},
+                      edit)
+
+
+def sync_api(api, sync, clients, c_states, f_states, rec, prof):
+    """Every client syncs with the farm over the Bloom protocol until no
+    message moves: per sweep, each client generates (``generate_sync_message``)
+    and the farm receives them in one ``receive_messages`` call, then the
+    farm generates for every channel in one ``generate_messages`` call and
+    each client receives (``receive_sync_message``). Returns [Sweep]."""
+    from automerge_tpu_torch.profiling import use_profile
+
+    channels = [(d, c) for d in range(len(clients))
+                for c in range(len(clients[0]))]
+    sweeps = []
+    for _sweep in range(64):
+        t0 = time.perf_counter()
+        batch = []
+        for d, c in channels:
+            c_states[d][c], msg = api.generate_sync_message(clients[d][c],
+                                                            c_states[d][c])
+            rec(msg)
+            if msg is not None:
+                batch.append((d, c, msg))
+        with use_profile(prof):
+            got = sync.receive_messages(
+                [(d, f_states[d][c], msg) for d, c, msg in batch]
+            ) if batch else []
+        for (d, c, _), (state, patch) in zip(batch, got):
+            f_states[d][c] = state
+            rec(canon(patch) if patch is not None else None)
+        with use_profile(prof):
+            out = sync.generate_messages(
+                [(d, f_states[d][c]) for d, c in channels])
+        moved = len(batch)
+        nbytes = sum(len(m) for _, _, m in batch)
+        for (d, c), (state, msg) in zip(channels, out):
+            f_states[d][c] = state
+            rec(msg)
+            if msg is None:
+                continue
+            moved += 1
+            nbytes += len(msg)
+            clients[d][c], c_states[d][c], patch = api.receive_sync_message(
+                clients[d][c], c_states[d][c], msg)
+            rec(canon(patch) if patch is not None else None)
+        sweeps.append(Sweep(time.perf_counter() - t0, moved, 0, nbytes))
+        if moved == 0:
+            return sweeps
+    raise RuntimeError("the API clients' sync did not quiesce in 64 sweeps")
+
+
+def run_api(device, docs, clients, rounds, seed, record=None, prof=None,
+            api=None, make_farm=None, sync_cls=None):
+    """Phase 17: per doc, `clients` API documents (``init`` with fixed
+    actor ids; client 0's seed change shared by all) edit concurrently for
+    `rounds` rounds of one ``api_edit`` change each. After each round
+    every client's ``get_changes`` since its last push goes into one farm
+    on `device` in one ``apply_changes`` delivery; then every client syncs
+    with the farm until no message moves (``sync_api``). The uuid factory
+    (Table row ids) runs a fixed sequence for the run. `record` collects
+    every farm patch, every sync message and patch, and every client's
+    ``save()``. `api`, `make_farm(docs, capacity)` and `sync_cls` default
+    to this package's API, a ``TorchDocFarm`` on `device` and its
+    ``SyncFarm``. Returns (farm, clients, stats)."""
+    import importlib
+
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+
+    if api is None:
+        import automerge_tpu_torch as api
+        from automerge_tpu_torch import SyncFarm as sync_cls
+        from automerge_tpu_torch import TorchDocFarm
+
+        def make_farm(n, capacity):
+            return TorchDocFarm(n, capacity=capacity, device=device)
+
+    prof = prof or PhaseProfile(enabled=False)
+
+    def rec(x):
+        if record is not None:
+            record.append(x)
+
+    uuid_module = importlib.import_module(f"{api.__name__}.uuid")
+    row_ids = iter(range(1, 1 << 62))
+    uuid_module.set_factory(lambda: f"{next(row_ids):032x}")
+    stats = {"edit_s": 0.0, "push_s": 0.0, "sync_s": 0.0, "sweeps": [],
+             "changes": 0}
+    try:
+        t0 = time.perf_counter()
+        docs_ = []
+        pushed = []
+        for d in range(docs):
+            seed_doc = api_seed(api, d)
+            first = api.get_all_changes(seed_doc)
+            row = [seed_doc] + [
+                api.apply_changes(api.init(api_actor(d, c)), first)[0]
+                for c in range(1, clients)]
+            docs_.append(row)
+            pushed.append([api.init(api_actor(d, 0))] + row[1:])
+        stats["edit_s"] += time.perf_counter() - t0
+        capacity = 1 << (clients * rounds * API_OPS + 8 - 1).bit_length()
+        farm = make_farm(docs, capacity)
+        sync = sync_cls(farm)
+        c_states = [[api.init_sync_state() for _ in range(clients)]
+                    for _ in range(docs)]
+        f_states = [[sync_cls.init_state() for _ in range(clients)]
+                    for _ in range(docs)]
+        for r in range(1, rounds + 1):
+            t0 = time.perf_counter()
+            for d in range(docs):
+                for c in range(clients):
+                    rng = random.Random(
+                        (seed * 1_000_003 + d) * 4099 + c * 131 + r)
+                    docs_[d][c] = api_edit(api, docs_[d][c], rng, r, c)
+            t1 = time.perf_counter()
+            stats["edit_s"] += t1 - t0
+            bufs = [[b for c in range(clients)
+                     for b in api.get_changes(pushed[d][c], docs_[d][c])]
+                    for d in range(docs)]
+            stats["changes"] += sum(len(b) for b in bufs)
+            with use_profile(prof):
+                result = farm.apply_changes(bufs)
+            if result.quarantined:
+                raise RuntimeError(f"API change quarantined: "
+                                   f"{result.quarantined}")
+            for patch in result:
+                rec(canon(patch))
+            _sync(device)
+            t2 = time.perf_counter()
+            stats["push_s"] += t2 - t1
+            stats["sweeps"].append(sync_api(api, sync, docs_, c_states,
+                                            f_states, rec, prof))
+            _sync(device)
+            stats["sync_s"] += time.perf_counter() - t2
+            pushed = [list(row) for row in docs_]
+        for row in docs_:
+            for doc in row:
+                rec(api.save(doc))
+    finally:
+        uuid_module.reset_factory()
+    return farm, docs_, stats
+
+
+def conflict_lag(api, live, saved, where):
+    """The root keys at which the live document `live` differs from its
+    own materialised copy `saved`. Each must be a key at which `saved`
+    holds a conflict, with the live value one of the conflict's values:
+    the incremental patch the backend hands the frontend after a delivery
+    omits a key's concurrent value when the delivery's change sets keys
+    out of key order (both packages' backends, ROADMAP queue C), so a live
+    view can hold the losing value of a conflict until the document is
+    materialised again. Any other difference raises."""
+    lagging = []
+    for key in sorted(set(live.keys()) | set(saved.keys())):
+        if key in live and key in saved and api.equals(live[key], saved[key]):
+            continue
+        values = (api.get_conflicts(saved, key) or {}).values()
+        if key not in live or not any(api.equals(live[key], v)
+                                      for v in values):
+            raise RuntimeError(
+                f"{where}: the live document differs from its saved one at "
+                f"{key!r}, and not by a value of a conflict there")
+        lagging.append(key)
+    return lagging
+
+
+def check_api(farm, clients, what, api=None):
+    """Phase 17's checks: every client's document, materialised from its
+    own ``save()``, equals the farm's (its whole-document patch read
+    through ``Frontend.apply_patch``), and its heads are the farm's; its
+    live document equals the materialised one but at conflicted root keys
+    (``conflict_lag``). Returns [(doc, client, lagging keys)] for the live
+    documents that differ."""
+    if api is None:
+        import automerge_tpu_torch as api
+
+    backend = api.get_backend()
+    stale = []
+    for d, row in enumerate(clients):
+        farm_doc = api.Frontend.apply_patch(api.Frontend.init(),
+                                            farm.get_patch(d))
+        heads = farm.get_heads(d)
+        for c, doc in enumerate(row):
+            saved = api.load(api.save(doc))
+            if not api.equals(saved, farm_doc):
+                raise RuntimeError(f"{what}: doc {d} client {c}: its saved "
+                                   "document differs from the farm's")
+            state = api.Frontend.get_backend_state(doc, "check_api")
+            if backend.get_heads(state) != heads:
+                raise RuntimeError(f"{what}: doc {d} client {c}: heads "
+                                   "differ from the farm's")
+            lagging = conflict_lag(api, doc, saved,
+                                   f"{what}: doc {d} client {c}")
+            if lagging:
+                stale.append((d, c, lagging))
+    return stale
+
+
+#: the farm's programs phase 17 must drive in every run (the visibility
+#: readbacks and the RGA rank run as the farm's lazy reads call for them)
+API_PROGRAMS = ("paging.apply_ops", "sync.build_filters",
+                "sync.query_filters", "kernel.bloom_build",
+                "kernel.bloom_query")
+
+
 def check_launched(table, launches, rec_build, rec_query, key, what):
     """Both Bloom kernels launched in the phase's run; each is then held
     bit-exact against its plain version at its largest launch there, and
@@ -2285,6 +2573,151 @@ def check_launched(table, launches, rec_build, rec_query, key, what):
         f"(build {build_err}, query {query_err})")
 
 
+def run_api_phase(args, table, card, device):
+    """Phase 17 (see the module docstring). Returns the phase's program
+    table and its API changes per second."""
+    from automerge_tpu_torch.obs.prof import (enabled_observatory,
+                                              get_observatory)
+    from automerge_tpu_torch.profiling import PhaseProfile
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
+
+    t0 = time.perf_counter()
+    prof = PhaseProfile()
+    bk.reset_launch_counts()
+    fallbacks = fallback_counts()
+    observatory = get_observatory()
+    observatory.reset()
+    with enabled_observatory(), \
+            recorded_bloom_launches() as (rec_build, rec_query):
+        farm, clients, stats = run_api(device, args.api_docs, API_CLIENTS,
+                                       API_ROUNDS, args.seed, prof=prof)
+    programs = observatory.table()
+    launches = dict(bk.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stale = check_api(farm, clients, "phase 17")
+    check_no_fallback(fallbacks, [farm], "phase 17")
+    check_s = time.perf_counter() - t1
+    for name in API_PROGRAMS:
+        if programs.get(name, {}).get("dispatches", 0) <= 0:
+            raise RuntimeError(f"phase 17 never dispatched {name}")
+    for name, n in launches.items():
+        if programs[f"kernel.{name}"]["dispatches"] != n:
+            raise RuntimeError(
+                f"phase 17: the observatory counts "
+                f"{programs[f'kernel.{name}']['dispatches']} kernel.{name} "
+                f"dispatches, the wrapper {n} launches")
+    made = args.api_docs * API_CLIENTS * API_ROUNDS
+    rate = made / stats["edit_s"]
+    farm_s = sum(t for path, (t, _) in prof.totals_by_path().items()
+                 if "/" not in path)
+    walk_s = prof.totals_by_path().get("walk", (0.0, 0))[0]
+    log(f"phase 17 API clients: {args.api_docs} docs x {API_CLIENTS} "
+        f"clients x {API_ROUNDS} rounds x {API_OPS} ops "
+        f"({made} API changes, {made * API_OPS} ops, "
+        f"{stats['changes']} changes delivered), card {card}")
+    log(f"  edits {stats['edit_s']:.3f} s ({rate:.0f} API changes/s on the "
+        f"host); pushes {stats['push_s']:.3f} s; sync {stats['sync_s']:.3f} "
+        f"s; checks {check_s:.3f} s; whole phase "
+        f"{time.perf_counter() - t0:.3f} s (run {run_s:.3f} s)")
+    for r, sweeps in enumerate(stats["sweeps"], 1):
+        log(f"  round {r} sync: {len(sweeps)} sweeps, "
+            f"{sum(sw.moved for sw in sweeps)} messages, "
+            f"{sum(sw.bytes for sw in sweeps)} bytes, "
+            f"{sum(sw.seconds for sw in sweeps):.3f} s")
+    log(f"  every client's saved document equals the farm's and its heads "
+        f"are the farm's; {len(stale)} of {args.api_docs * API_CLIENTS} "
+        f"live documents lag it at {sum(len(k) for *_, k in stale)} root "
+        "keys, each holding another value of a conflict there (the "
+        "backend's incremental patch, both packages); no other difference")
+    log(f"  farm phases {farm_s:.3f} s (walk {walk_s:.3f} s, "
+        f"{walk_s / farm_s if farm_s else 0.0:.1%}); kernel launches "
+        f"{launches}")
+    log("  phase table (API farm, host clock):")
+    for line in prof.table().splitlines():
+        log("    " + line)
+    log("  program table (observatory; dispatch_ms on the host clock, "
+        "the enqueue time for card work):")
+    for name, row in programs.items():
+        log(f"    {name:<26} dispatches {row['dispatches']:>6}  buckets "
+            f"{row['cache_size']:>3}  compiles {row['compiles']:>3}  "
+            f"dispatch_ms {row['dispatch_ms']}")
+    check_launched(table, launches, rec_build, rec_query, "api", "phase 17")
+    return programs, rate
+
+
+def obs_cli(*argv, timeout=600):
+    """``python -m automerge_tpu_torch.obs`` in a subprocess, from the
+    repo's root."""
+    return subprocess.run(
+        [sys.executable, "-m", "automerge_tpu_torch.obs", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=timeout)
+
+
+def run_cli_phase(args, programs17, api_rate, device):
+    """Phase 18 (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from automerge_tpu_torch.obs.ledger import append_record
+
+    t0 = time.perf_counter()
+    proc = obs_cli("--docs", str(args.cli_docs), "--rounds", str(CLI_ROUNDS),
+                   "--device", device, "--json")
+    if proc.returncode != 0:
+        raise RuntimeError(f"the obs CLI exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not out["spans"]:
+        raise RuntimeError("the obs CLI printed an empty span tree")
+    programs = out["programs"]
+    for name in ("kernel.bloom_build", "kernel.bloom_query",
+                 "paging.apply_ops"):
+        if programs.get(name, {}).get("dispatches", 0) <= 0:
+            raise RuntimeError(f"the obs CLI's program table lacks {name}")
+    cli_s = time.perf_counter() - t0
+    log(f"phase 18 obs CLI: --docs {args.cli_docs} --rounds {CLI_ROUNDS} "
+        f"--device {device} --json, rc 0 in {cli_s:.3f} s (one process); spans "
+        f"{[s['name'] for s in out['spans']]}; programs:")
+    for name, row in programs.items():
+        log(f"    {name:<26} dispatches {row['dispatches']:>5}  compiles "
+            f"{row['compiles']:>3}  dispatch_ms {row['dispatch_ms']}")
+
+    def rows(table):
+        return {n: {"compiles": r["compiles"], "dispatches": r["dispatches"]}
+                for n, r in table.items()}
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-ledger-")
+    try:
+        path = os.path.join(root, "ledger.jsonl")
+        append_record(path, {"kind": "obs-cli", "programs": rows(programs),
+                             "config": {"docs": args.cli_docs,
+                                        "rounds": CLI_ROUNDS}})
+        append_record(path, {"kind": "api", "programs": rows(programs17),
+                             "ops_per_sec": api_rate,
+                             "config": {"docs": args.api_docs,
+                                        "clients": API_CLIENTS,
+                                        "rounds": API_ROUNDS}})
+        trajectory = obs_cli("--ledger", path, timeout=120)
+        diff = obs_cli("--ledger", path, "--diff", "-2", "-1", timeout=120)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if trajectory.returncode or len(trajectory.stdout.splitlines()) != 4:
+        raise RuntimeError(f"--ledger failed: {trajectory.stdout[-500:]} "
+                           f"{trajectory.stderr[-500:]}")
+    if diff.returncode or "programs:" not in diff.stdout:
+        raise RuntimeError(f"--diff failed: {diff.stdout[-500:]} "
+                           f"{diff.stderr[-500:]}")
+    log("  --ledger (two records, a temp directory):")
+    for line in trajectory.stdout.splitlines():
+        log("    " + line)
+    log("  --diff -2 -1:")
+    for line in diff.stdout.splitlines():
+        log("    " + line)
+    log(f"  whole phase {time.perf_counter() - t0:.3f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=512)
@@ -2298,6 +2731,8 @@ def main(argv=None) -> int:
     parser.add_argument("--fault-docs", type=int, default=64)
     parser.add_argument("--store-docs", type=int, default=STORE_DOCS)
     parser.add_argument("--serve-clients", type=int, default=SERVE_CLIENTS)
+    parser.add_argument("--api-docs", type=int, default=API_DOCS)
+    parser.add_argument("--cli-docs", type=int, default=CLI_DOCS)
     args = parser.parse_args(argv)
 
     for name, value in decode_cache_env(args.docs, args.replicas,
@@ -2323,7 +2758,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-16 on the card (see the module docstring); raises on the
+    """Phases 1-18 on the card (see the module docstring); raises on the
     first check that fails."""
     import shutil
     import tempfile
@@ -2451,17 +2886,23 @@ def run_phases(args) -> int:
             check_serve(f4, report, 64, f"phase 4 ({dev})")
         finally:
             shutil.rmtree(root, ignore_errors=True)
+        fallbacks = fallback_counts()
+        f4, api_clients, _ = run_api(dev, 8, API_CLIENTS, API_ROUNDS,
+                                     args.seed, record=rec)
+        rec.append(repr(check_api(f4, api_clients, f"phase 4 ({dev})")))
+        check_no_fallback(fallbacks, [f4], f"phase 4 ({dev})")
     if on_card != on_cpu:
         first = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
                      if a != b) if len(on_card) == len(on_cpu) else "length"
         raise RuntimeError(f"card and CPU runs differ (first at {first})")
     log(f"phase 4 card vs CPU at 16 docs (v1 sync, mixed v1/v2 sync, 16 "
         f"supervised channels, a store round trip with a torn tail, 64 "
-        f"served clients at 30 % chaos with a store attached): "
+        f"served clients at 30 % chaos with a store attached, 8 docs x "
+        f"{API_CLIENTS} API clients x {API_ROUNDS} rounds against a farm): "
         f"{len(on_card)} messages, patches, frames, saved sessions, reports "
         f"and store files identical ({time.perf_counter() - t0:.2f} s)")
 
-    del f4, clients, pairs
+    del f4, clients, pairs, api_clients
 
     # 5. LEB128 kernel edge shapes and the device scan's edge streams
     t0 = time.perf_counter()
@@ -2843,6 +3284,12 @@ def run_phases(args) -> int:
     check_launched(table, launches16, rec_build16, rec_query16, "serve",
                    "phase 16")
     del sfarm
+
+    # 17. the public API's clients against the farm, observatory on
+    programs17, api_rate = run_api_phase(args, table, card, device)
+
+    # 18. the obs CLI on the card, then its ledger modes
+    run_cli_phase(args, programs17, api_rate, device)
 
     log(card)
     log(json.dumps(table))

@@ -5,7 +5,7 @@ bit against the JAX ``sync.fingerprint_ranges`` program on seeded words
 against the JAX index and the host ``HashIndex``, and a ``SyncFarm``
 sweep that mixes v1 and v2 channels: equal messages and patches sweep by
 sweep, and one reduction per generate call with v2 queries, as many as
-the JAX observatory counts."""
+the JAX observatory counts and the port's own observatory counts."""
 import hashlib
 
 import numpy as np
@@ -18,6 +18,7 @@ from automerge_tpu.tpu.farm import TpuDocFarm
 from automerge_tpu.tpu.sync_farm import SyncFarm as JaxSyncFarm
 from automerge_tpu_torch import SyncFarm, TorchDocFarm
 from automerge_tpu_torch import sync_v2 as V2
+from automerge_tpu_torch.obs import prof as port_prof
 from automerge_tpu_torch.tpu import fingerprint
 
 import chip_smoke
@@ -129,14 +130,19 @@ def test_mixed_protocol_farm_sweep_matches_jax(docs, replicas, v2_replicas,
         jsweeps = chip_smoke.sync_until_quiet("cpu", jsync, jreps, docs,
                                               want.append, v2_replicas)
         jax_dispatches = prog.dispatches - before
-    psweeps = chip_smoke.sync_until_quiet("cpu", psync, preps, docs,
-                                          got.append, v2_replicas)
+    port_prog = port_prof.get_observatory().programs()[
+        "sync.fingerprint_ranges"]
+    with port_prof.enabled_observatory():
+        before = port_prog.dispatches
+        psweeps = chip_smoke.sync_until_quiet("cpu", psync, preps, docs,
+                                              got.append, v2_replicas)
+        port_dispatches = port_prog.dispatches - before
     assert got == want
     assert [(s.moved, s.v2_moved, s.bytes) for s in psweeps] == [
         (s.moved, s.v2_moved, s.bytes) for s in jsweeps]
     assert any(s.v2_moved for s in psweeps)
     dispatches = sum(s.fingerprints.dispatches for s in [psync, *preps])
-    assert dispatches == jax_dispatches > 0
+    assert dispatches == jax_dispatches == port_dispatches > 0
     # at most one reduction per generate call: the server and each v2
     # replica generate once per sweep
     assert dispatches <= len(psweeps) * (1 + v2_replicas)

@@ -2,9 +2,11 @@
 SyncFarm, its sequential engine, text engine and kernels, its backend,
 sync v2, sessions, fault points, flight recorder and fingerprint index,
 its store, serving front door, chaos transport and request-flow
-observability included) or chip_smoke.py loads neither JAX nor anything
-of the JAX package, and its entry points refuse to fall back to the CPU
-when no card is present."""
+observability, its public API, frontend and uuid factory, its program
+observatory, ledger and obs CLI included) or chip_smoke.py loads neither
+JAX nor anything of the JAX package, and its entry points refuse to fall
+back to the CPU when no card is present. The port's memory sampler reads
+its own codecs module, never the JAX package's."""
 import subprocess
 import sys
 from pathlib import Path
@@ -19,9 +21,14 @@ import sys
 import automerge_tpu_torch
 import automerge_tpu_torch.backend
 import automerge_tpu_torch.carry
+import automerge_tpu_torch.frontend
 import automerge_tpu_torch.kernels
+import automerge_tpu_torch.obs
+import automerge_tpu_torch.obs.__main__
 import automerge_tpu_torch.obs.export
 import automerge_tpu_torch.obs.flight
+import automerge_tpu_torch.obs.ledger
+import automerge_tpu_torch.obs.prof
 import automerge_tpu_torch.obs.scope
 import automerge_tpu_torch.obs.slo
 import automerge_tpu_torch.opset
@@ -31,7 +38,9 @@ import automerge_tpu_torch.sync_session
 import automerge_tpu_torch.sync_v2
 import automerge_tpu_torch.testing.chaos
 import automerge_tpu_torch.testing.faults
+import automerge_tpu_torch.uuid
 import automerge_tpu_torch.tpu.fingerprint
+import automerge_tpu_torch.tpu.jitprof
 import automerge_tpu_torch.tpu.decode
 import automerge_tpu_torch.tpu.leb_kernels
 import automerge_tpu_torch.tpu.rga
@@ -55,6 +64,52 @@ def test_import_loads_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert "LEAKED=\n" in out.stdout, out.stdout
+
+
+FRESH_IMPORTS = """
+import importlib, pathlib, sys
+root = pathlib.Path("automerge_tpu_torch")
+names = sorted(
+    ".".join(p.with_suffix("").parts).removesuffix(".__init__")
+    for p in root.rglob("*.py"))
+failed = []
+for name in names:
+    for loaded in [m for m in sys.modules if m.startswith("automerge_tpu_torch")]:
+        del sys.modules[loaded]
+    try:
+        importlib.import_module(name)
+    except Exception as exc:
+        failed.append(f"{name}: {exc!r}")
+print("MODULES=%d" % len(names))
+print("FAILED=" + " | ".join(failed))
+"""
+
+
+def test_every_module_imports_first_in_a_fresh_interpreter():
+    """Whichever module of the port a process names first imports: the
+    package's lazy entry points leave no import cycle to the order in
+    which an earlier import happened to load modules."""
+    out = subprocess.run(
+        [sys.executable, "-c", FRESH_IMPORTS], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "FAILED=\n" in out.stdout, out.stdout
+    assert int(out.stdout.split("MODULES=")[1].split()[0]) >= 50
+
+
+def test_sampler_reads_the_port_codecs_only():
+    """The port's Sampler names ``automerge_tpu_torch.codecs`` (a copied
+    string would read the JAX package's DecodeCache whenever both are
+    loaded, and no import check sees a string)."""
+    import inspect
+
+    from automerge_tpu_torch.obs import prof
+
+    assert prof.CODECS_MODULE == "automerge_tpu_torch.codecs"
+    source = inspect.getsource(prof)
+    assert '"automerge_tpu.codecs"' not in source
+    assert "sys.modules.get(CODECS_MODULE)" in source
 
 
 def test_farm_defaults_to_the_card():

@@ -1,8 +1,11 @@
 """Sync v2 (range-based reconciliation) in the port against the JAX
 package, on the CPU: the wire codec (equal bytes, and every malformed
 shape rejected with ``SyncProtocolError``, touching nothing) and the
-single-document v2 loop (equal messages sweep by sweep). The fingerprint
-reduction and the farm's mixed sweep are tests/test_torch_fingerprint.py's."""
+single-document v2 loop (equal messages sweep by sweep), and the port's
+own observatory on a mixed v1/v2 farm sweep: one ``sync.fingerprint_ranges``
+dispatch per generate call whose v2 channels planned queries, none
+otherwise. The fingerprint reduction and the farm sweep against the JAX
+package are tests/test_torch_fingerprint.py's."""
 import hashlib
 import math
 
@@ -18,6 +21,9 @@ from automerge_tpu_torch import sync_v2 as V2
 from automerge_tpu_torch.codecs import Encoder, hex_to_bytes
 from automerge_tpu_torch.columnar import encode_change
 from automerge_tpu_torch.errors import SyncProtocolError
+from automerge_tpu_torch.obs.prof import enabled_observatory, get_observatory
+
+import chip_smoke
 
 MIN, MAX = V2.MIN_HASH, V2.MAX_HASH
 
@@ -207,3 +213,25 @@ def test_single_document_v2_matches_jax(na, nb):
     assert Backend.get_heads(pa) == Backend.get_heads(pb)
     assert Backend.get_patch(pa) == JaxBackend.get_patch(ja)
     assert trips <= 2 * math.log2(max(na + nb, 2)) + 2
+
+
+# ---------------------------------------------------------------------- #
+# the port's observatory on a mixed v1/v2 farm sweep
+
+
+def test_mixed_sweep_dispatches_one_reduction_per_planned_call():
+    """Phase 11's rule, read from the port's own observatory: every
+    ``SyncFarm.generate_messages`` call whose v2 channels planned
+    fingerprint queries dispatches ``sync.fingerprint_ranges`` once, and
+    any other call not at all."""
+    prog = get_observatory().programs()["sync.fingerprint_ranges"]
+    with enabled_observatory():
+        before = prog.dispatches
+        with chip_smoke.counted_generate_calls(
+                count=lambda _sync: prog.dispatches) as calls:
+            farms, _stats = chip_smoke.run_scenario(
+                "cpu", 4, 4, 3, 5, 3, v2_replicas=2)
+        ran = prog.dispatches - before
+    chip_smoke.check_converged(farms, 4)
+    assert calls["wrong"] == []
+    assert ran == calls["with_queries"] > 0
