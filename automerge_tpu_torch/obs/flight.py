@@ -31,11 +31,12 @@ page-slab growth) into one process-wide ring buffer:
   fresh controller seqs while preserving the origin key ``(epoch, shard,
   wseq)``. Merged dumps therefore order deterministically: controller seq
   first, origin key as the tiebreaker when independently-numbered dumps
-  are concatenated.
+  are concatenated. Workers also ``write_blackbox()`` a bounded file
+  (flight tail + last phase profile) after every delivery, so a
+  SIGKILLed worker's final events survive for crash forensics.
 
 This is the port's own copy of the JAX package's ``obs/flight.py`` (a
-host-only module), with its own process-wide recorder. The mesh workers'
-black-box files come with the port of ``parallel/``; ``render_timeline``
+host-only module), with its own process-wide recorder; ``render_timeline``
 renders a dump as a causally ordered timeline.
 """
 # amlint: host-only — pure-host layer: must not import tpu/ or torch
@@ -52,6 +53,8 @@ from typing import Iterator
 DEFAULT_CAPACITY = 4096
 #: auto-dump files per process: a quarantine storm must not fill a disk
 MAX_AUTO_DUMPS = 8
+#: events preserved in a worker's black-box file (bounded on disk)
+BLACKBOX_TAIL = 64
 
 
 class FlightRecorder:
@@ -252,6 +255,44 @@ def render_timeline(events: list[dict]) -> str:
         )
         lines.append(row)
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------- #
+# worker black box: crash forensics that survive a SIGKILL
+
+def write_blackbox(path: str, recorder: FlightRecorder,
+                   phases_jsonl: str = "") -> None:
+    """Persists a bounded black-box file: the recorder's flight tail
+    (shard-tagged) plus the last delivery's phase profile. Written
+    atomically (tmp + rename) after every worker delivery and on the
+    worker fault path, so the file a crashed worker leaves behind is
+    always a complete JSON document — a SIGKILL between deliveries cannot
+    tear it. The black box is advisory forensics on a per-delivery hot
+    path, so it skips the store tier's fsync (the WAL owns durability)."""
+    # Late import: the store package's WAL layer records flight events, so
+    # binding its atomic writer at call time keeps the import graph acyclic.
+    from ..store.atomic import atomic_write
+
+    payload = {
+        "pid": os.getpid(),
+        "shard": recorder.shard,
+        "epoch": recorder.epoch,
+        "events": recorder.tail(BLACKBOX_TAIL),
+        "phases": phases_jsonl,
+    }
+    atomic_write(path, json.dumps(payload, sort_keys=True, default=str),
+                 fsync=False)
+
+
+def read_blackbox(path: str) -> dict | None:
+    """Loads a black-box file; None when absent or torn (best-effort by
+    contract — the writer may have died before its first delivery)."""
+    try:
+        with open(path, encoding="utf-8") as fh:
+            payload = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    return payload if isinstance(payload, dict) else None
 
 
 # ---------------------------------------------------------------------- #

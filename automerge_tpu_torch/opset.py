@@ -24,8 +24,8 @@ new.js:747-1040) exactly, so patches are bit-identical JSON.
 
 This is the port's own copy of the JAX package's ``opset.py`` (a host-only
 module): the sequential engine ``TorchDocFarm`` embeds per list/text
-document. It differs only in its imports and in dropping the native C++
-column encoder, which this package does not carry.
+document. It differs only in its imports; its native column encoder binds
+the port's own ``native`` library.
 """
 # amlint: host-only — pure-host layer: must not import tpu/ or torch
 from __future__ import annotations
@@ -1427,8 +1427,14 @@ class OpSet:
         )
         return self.binary_doc
 
-    def _encode_ops_columns(self):
-        """Encodes the flat op rows into document op columns."""
+    def _encode_ops_columns(self, force_python=False):
+        """Encodes the flat op rows into document op columns. Uses the native
+        C++ codec library for the numeric columns when available (byte-
+        identical output; see automerge_tpu/native.py)."""
+        if not force_python:
+            native_cols = self._encode_ops_columns_native()
+            if native_cols is not None:
+                return native_cols
         encoders = [encoder_by_column_id(cid) for _name, cid in DOC_OPS_COLUMNS]
         for row in self.ops:
             for i in range(13):
@@ -1449,6 +1455,71 @@ class OpSet:
         return [
             (cid, enc.buffer) for (_name, cid), enc in zip(DOC_OPS_COLUMNS, encoders)
         ]
+
+    def _encode_ops_columns_native(self):
+        """Bulk column encode through the native codec library. Returns None
+        when the library is unavailable (pure-Python fallback is used)."""
+        try:
+            from . import native
+        except ImportError:
+            return None
+        if not native.available():
+            return None
+        import numpy as np
+
+        ops = self.ops
+        sent = native.NULL_SENTINEL
+
+        def column(idx, transform=None):
+            return np.array(
+                [sent if row[idx] is None else (transform(row[idx]) if transform else row[idx])
+                 for row in ops],
+                np.int64,
+            )
+
+        out = []
+        for name, cid in DOC_OPS_COLUMNS:
+            if name == "keyStr":
+                enc = encoder_by_column_id(cid)
+                for row in ops:
+                    enc.append_value(row[KEY_STR])
+                out.append((cid, enc.buffer))
+            elif name == "valRaw":
+                out.append((cid, b"".join(row[VAL_RAW] or b"" for row in ops)))
+            elif name == "insert":
+                out.append((cid, native.bool_encode(
+                    np.array([bool(row[INSERT]) for row in ops], np.uint8))))
+            elif name == "keyCtr":
+                out.append((cid, native.delta_encode(column(KEY_CTR))))
+            elif name == "idCtr":
+                out.append((cid, native.delta_encode(column(ID_CTR))))
+            elif name == "chldCtr":
+                out.append((cid, native.delta_encode(column(CHLD_CTR))))
+            elif name == "succCtr":
+                flat = [c for row in ops for c in row[SUCC_CTR]]
+                out.append((cid, native.delta_encode(np.array(flat, np.int64))))
+            elif name == "succActor":
+                flat = [a for row in ops for a in row[SUCC_ACTOR]]
+                out.append((cid, native.rle_encode(np.array(flat, np.int64))))
+            elif name == "objActor":
+                out.append((cid, native.rle_encode(column(OBJ_ACTOR))))
+            elif name == "objCtr":
+                out.append((cid, native.rle_encode(column(OBJ_CTR))))
+            elif name == "keyActor":
+                out.append((cid, native.rle_encode(column(KEY_ACTOR))))
+            elif name == "idActor":
+                out.append((cid, native.rle_encode(column(ID_ACTOR))))
+            elif name == "action":
+                out.append((cid, native.rle_encode(column(ACTION))))
+            elif name == "valLen":
+                out.append((cid, native.rle_encode(column(VAL_LEN))))
+            elif name == "chldActor":
+                out.append((cid, native.rle_encode(column(CHLD_ACTOR))))
+            elif name == "succNum":
+                out.append((cid, native.rle_encode(column(SUCC_NUM))))
+            else:
+                return None
+        return out
 
     def _encode_change_columns(self):
         """Encodes change metadata into document change columns

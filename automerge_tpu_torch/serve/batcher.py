@@ -33,8 +33,11 @@ Admission control happens at ``submit`` time, before anything is queued:
 
 The batcher is farm-implementation-agnostic: it reads only
 ``farm.quarantine`` and the optional ``shard_of`` a sharded farm exposes
-(the JAX package fronts its process-worker ``MeshFarm`` this way; the
-port's ``parallel/`` is a later slice).
+(``parallel.MeshFarm`` exposes it, with either backend). Over a process
+mesh the per-submit quarantine check stays cheap: the controller answers
+``farm.quarantine`` from its local mirror, with no worker round trip, and
+a worker crash mid-flush quarantines the crashed shard's in-flight docs
+under ``WorkerCrashError`` like any mid-window poisoning.
 
 Everything is driven by the injected clock (``clock()`` in simulated or
 real seconds) — no wall-clock reads, no sleeps, no blocking calls (amlint

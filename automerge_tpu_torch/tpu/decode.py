@@ -30,8 +30,8 @@ canonical ``DecodeError``/``ChecksumError``. The byte-corpus suite
 reference corpus, fuzzed changes and corrupt inputs.
 
 Importing this module registers the single-chunk vector pass as
-columnar.decode_change's fast backend (before the per-op decoder
-chain). The farm's delivery hot path and the
+columnar.decode_change's fallback backend (after the native library,
+before the per-op decoder chain). The farm's delivery hot path and the
 sync receive paths call ``warm_decode_cache`` to decode all cache misses
 of a delivery together in one batch.
 
@@ -49,7 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import columnar
+from .. import columnar, native
 from ..codecs import MAX_SAFE_INTEGER, Decoder
 from ..columnar import NULL_SENTINEL, ColumnType
 from ..obs.metrics import get_metrics
@@ -272,7 +272,8 @@ def _strrle_expand(buf: bytes, row_cap: int = ROW_CAP):
     """utf8 RLE column: value-level walk (strings interleave with the run
     varints, so this column cannot ride the shared varint scan). O(records
     + strings) Python — runs and length prefixes amortise the per-byte
-    cost the scalar chain pays. Returns (blob, offsets int64[n, 2]): row i is blob[o[i,0]:o[i,1]], null rows
+    cost the scalar chain pays. Returns (blob, offsets int64[n, 2]) in
+    native.strrle_decode's format: row i is blob[o[i,0]:o[i,1]], null rows
     are (-1, -1)."""
     dec = Decoder(buf)
     n_bytes = len(buf)
@@ -391,6 +392,12 @@ def _soa_from_columns(varints, strs, raws, scan: _Scan, seg_of):
         else:
             arrs[name] = _rle_expand(scan, lo, hi, signed=False)
     for name, buf in strs.items():
+        if buf and native.available():
+            try:
+                arrs[name] = native.strrle_decode(buf)
+                continue
+            except ValueError:
+                pass  # the Python walk re-validates and classifies
         arrs[name] = _strrle_expand(buf)
     for name, buf in raws.items():
         arrs[name] = buf
@@ -407,7 +414,7 @@ def _count_bytes(varints, strs, raws) -> int:
 
 def _vector_change_ops(cols, actor_ids):
     """Single-chunk vectorized change-op decode — the backend registered
-    with columnar.set_vector_decoder (contract:
+    with columnar.set_vector_decoder (same contract as the native path:
     ops list, or None to defer to the generic per-op decoder chain)."""
     grouped = _collect_columns(cols)
     if grouped is None:
@@ -444,7 +451,7 @@ def _decode_batch(keys):
     the decoded change dict, or the exception that buffer raises.
 
     Chunks the vector pass cannot prove well-formed re-decode through
-    columnar.decode_change (the scalar chain), which produces the canonical
+    columnar.decode_change (native/scalar), which produces the canonical
     result or error — corrupt inputs cost one extra parse, the clean bulk
     path stays batched."""
     metas = [None] * len(keys)

@@ -67,6 +67,7 @@ outside the dispatch). ``isolation="batch"`` keeps the all-or-nothing contract.
 from __future__ import annotations
 
 import os
+import pickle
 import time
 from collections import OrderedDict
 from typing import NamedTuple
@@ -366,6 +367,71 @@ class FarmApplyResult(list):
         }
 
 
+# ---------------------------------------------------------------------- #
+# wire frames: the picklable shipping format a mesh worker process uses
+# to return one FarmApplyResult over a pipe (parallel/workers.py).
+# Patches are double-pickled — the whole per-doc patch list rides as ONE
+# opaque blob inside the response — so the controller can defer (or
+# skip) materializing thousands of patch dicts it may never index into;
+# outcomes travel as flat tuples with the exception safely pickled
+# (exceptions can carry unpicklable payloads, e.g. wrapped runtime
+# errors — those degrade to a same-taxonomy stand-in carrying the repr).
+# Every payload is host data (dicts, lists, str, int, bytes, numpy), never
+# a torch tensor: ``import torch`` registers reductions that would ship a
+# card tensor across the pipe as a CUDA IPC handle.
+
+def exc_to_blob(exc: BaseException | None) -> bytes | None:
+    """Pickles an exception, degrading unpicklable ones to a
+    DeviceFaultError-taxonomy stand-in that preserves kind + repr."""
+    if exc is None:
+        return None
+    try:
+        blob = pickle.dumps(exc)
+        pickle.loads(blob)  # some exceptions pickle but fail to rebuild
+        return blob
+    except Exception:
+        stand_in = DeviceFaultError(
+            f"[unpicklable {type(exc).__name__}] {exc!r}"
+        )
+        stand_in.kind = error_kind(exc)
+        return pickle.dumps(stand_in)
+
+
+def exc_from_blob(blob: bytes | None) -> BaseException | None:
+    return None if blob is None else pickle.loads(blob)
+
+
+def outcome_to_wire(o: DocOutcome) -> tuple:
+    return (
+        o.status, exc_to_blob(o.error), o.error_kind,
+        tuple(o.offending_hashes), o.fallback,
+    )
+
+
+def outcome_from_wire(w: tuple) -> DocOutcome:
+    status, blob, kind, offending, fallback = w
+    if status == "applied" and blob is None and not offending:
+        return _APPLIED_FALLBACK if fallback else _APPLIED
+    return DocOutcome(status, exc_from_blob(blob), kind, offending, fallback)
+
+
+def result_to_wire(result: FarmApplyResult) -> dict:
+    """{patches: blob, outcomes: [wire tuples]} — see block comment."""
+    return {
+        "patches": pickle.dumps(
+            list(result), protocol=pickle.HIGHEST_PROTOCOL
+        ),
+        "outcomes": [outcome_to_wire(o) for o in result.outcomes],
+    }
+
+
+def result_from_wire(frame: dict) -> FarmApplyResult:
+    return FarmApplyResult(
+        pickle.loads(frame["patches"]),
+        [outcome_from_wire(w) for w in frame["outcomes"]],
+    )
+
+
 #: cache sentinel for changes the column transcoder cannot express
 _UNCACHEABLE = object()
 
@@ -542,6 +608,12 @@ class TorchDocFarm:
         self._cols_cache: OrderedDict = OrderedDict()
         self._opid_strs: dict[int, str] = {}
         self._leaf_tpls: dict[int, dict] = {}
+
+    @property
+    def device(self) -> torch.device:
+        """Where the op slab and the merge programs live (the engine's
+        device): a ``SyncFarm`` over this farm builds its filters there."""
+        return self.engine.device
 
     # ------------------------------------------------------------------ #
     # transcoding

@@ -139,7 +139,9 @@ class SyncFarm:
 
     def __init__(self, farm):
         self.farm = farm
-        self.device = farm.engine.device
+        # the farm's device (a MeshFarm names its controller's): filters
+        # and fingerprint reductions run there
+        self.device = farm.device
         # outcome report of the most recent receive_messages farm dispatch
         # (a FarmApplyResult, or None when the call applied no changes)
         self.last_apply = None

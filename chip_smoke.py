@@ -20,6 +20,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    replica. Every farm must end
    with equal heads and equal whole-document patches, and both Bloom
    kernels must have launched; the launches are logged by shape. The
+   native codecs must be on (``native.available()``: the repo's
+   ``native/codecs.cpp`` built with ``g++`` into ``build/native/``), and
+   the phase logs the share of ``decode`` in the farm phases. The
    kernels are then held against their plain versions again on the
    inputs of their largest main-path launch and timed there: device time
    per launch from a CUDA-graph replay, time per eager call, the launch
@@ -28,10 +31,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. the same scenario at 16 documents, then phase 11's mixed v1/v2 sync
    and phase 13's supervised channels at 16 documents, phase 15's store
    at 16 documents, phase 16's serving at 64 clients over 16 docs with
-   30 % chaos and a store attached, and phase 17's API clients at 8
-   documents, once on the card and once on the CPU: every sync message,
-   patch, session frame, saved session, load report, store file and
-   ``save()`` must be byte-identical;
+   30 % chaos and a store attached, phase 17's API clients at 8
+   documents, and a 16-doc ``MeshFarm`` of 4 shards (inline, then over
+   process workers on the pickle transport; doc 0 migrated mid-run), once
+   on the card and once on the CPU: every sync message, patch, session
+   frame, saved session, load report, store file and ``save()`` must be
+   byte-identical, and the two meshes' patches too;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
    card, bit-exact, at edge inputs (``segsum_edge_inputs``), each of which
    must take the pass its ids call for (the sorted pass, or the general
@@ -128,9 +133,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    subprocess on the card: rc 0, a span tree, and a program table with
    both Bloom kernels and ``paging.apply_ops`` dispatched; then
    ``--ledger`` renders a two-record ledger in a temp directory and
-   ``--diff -2 -1`` diffs it.
+   ``--diff -2 -1`` diffs it;
+19. the doc-sharded mesh at the JAX package's MULTICHIP_r09.json shape
+   (``--mesh-docs`` 8,192 over 8 shards, 2 rounds of one 256-op change
+   per doc, the same change stream for every doc): (a) a ``MeshFarm`` of
+   8 process workers, each with its own CUDA context on the card, over
+   the shared-memory transport (no batch or result may fall back to the
+   pipe), every change committed and nothing quarantined, against a solo
+   shard-sized farm in this process (``wall_scaling``, the usable cores,
+   per-shard dispatch seconds, pipe and ring bytes); (b) the same
+   deliveries at 1,024 docs through the pickle transport and the inline
+   backend, every patch byte-identical to (a)'s; (c) a migration over the
+   pipe after round 0 with a clean ``audit()``, and a second reconcile
+   pass that syncs 0; (d) a worker SIGKILLed mid-apply: its docs are
+   quarantined, it respawns and re-hydrates, and after release they equal
+   the inline mesh, with its black box in the crash dump; (e) a fresh
+   replica of 256 docs catches up through a ``SyncFarm`` over the mesh
+   (its filters on the card), and both Bloom kernels are held bit-exact
+   at that phase's largest launches (the ``mesh`` entry of their rows).
 
-Every fault-free phase (3, 4, 6, 7, 10-13, 15-17) fails if the degraded walk served
+Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19) fails if the degraded walk served
 a document (``farm.fallback.calls`` moved, or a farm has ``degraded``
 docs): only phase 14's injected fault may take it.
 
@@ -2718,6 +2740,386 @@ def run_cli_phase(args, programs17, api_rate, device):
     log(f"  whole phase {time.perf_counter() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------- #
+# phase 19: the doc-sharded mesh, MULTICHIP_r09.json's shape (8 shards x
+# 8,192 docs x 2 rounds of one 256-op change, process workers, the shm
+# transport); its (b)-(e) steps and phase 4's small mesh
+
+MESH_DOCS, MESH_SHARDS, MESH_ROUNDS, MESH_OPS = 8192, 8, 2, 256
+MESH_PARITY_DOCS, MESH_CATCHUP_DOCS = 1024, 256
+# a hung worker fails the phase well inside the script's limit
+MESH_WORKER_TIMEOUT_S = 300.0
+# ring slots sized for the full shape's batches and result frames (about
+# 1.6 MB a shard and delivery), as the JAX package's mesh bench sizes them
+MESH_SHM_SLOTS, MESH_SHM_SLOT_BYTES = 4, 8 << 20
+# phase 4's mesh: docs, shards, rounds, ops per change
+MESH_SMALL = (16, 4, 3, 32)
+
+
+def mesh_stream(rounds, ops, seed):
+    """The change stream every doc of a phase-19 mesh takes, one change a
+    round: `ops` uint sets on 64 root keys (``store_streams``' first
+    stream, the JAX package's ``bench._make_change_stream``)."""
+    return store_streams(1, rounds, ops, seed)[0]
+
+
+def open_mesh(device, docs, shards, backend, transport, capacity,
+              warm=None):
+    from automerge_tpu_torch.parallel import MeshFarm
+
+    return MeshFarm(docs, num_shards=shards, capacity=capacity,
+                    device=device, mesh_backend=backend,
+                    mesh_transport=transport,
+                    worker_timeout=MESH_WORKER_TIMEOUT_S, warm_changes=warm)
+
+
+def mesh_traffic(snap, shards):
+    """Per shard, from a metrics snapshot: docs dispatched, dispatch
+    seconds (the worker's ``apply_changes`` wall), pipe bytes in payload
+    and in control frames, and the shm rings' bytes and stalls."""
+    def value(name):
+        return snap.get(name, {}).get("value", 0)
+
+    return {s: {
+        "docs": value(f"mesh.shard.{s}.docs"),
+        "dispatch_s": snap.get(f"mesh.shard.{s}.dispatch_ms",
+                               {}).get("sum", 0.0) / 1e3,
+        "payload_bytes": value(f"mesh.pipe.{s}.payload_bytes"),
+        "control_bytes": value(f"mesh.pipe.{s}.control_bytes"),
+        "shm_bytes": (value(f"mesh.shm.{s}.bytes_out")
+                      + value(f"mesh.shm.{s}.bytes_in")),
+        "stalls": value(f"mesh.shm.{s}.stalls"),
+    } for s in range(shards)}
+
+
+def run_mesh_throughput(device, docs, shards, rounds, ops, seed,
+                        transport="shm"):
+    """Phase 19 (a): `docs` documents over `shards` process workers on
+    `device` take `rounds` deliveries of one `ops`-op change each, the
+    same change for every doc, with this package's registry on and a phase
+    profile the workers fill. Before it, a solo shard-sized
+    ``TorchDocFarm`` in this process takes the same stream (after a
+    warm-up farm): the per-shard rate a perfectly scaling mesh keeps.
+    Returns (mesh, stream, stats); the mesh stays open. The stream holds
+    one more change, for step (d). The registry is zeroed before the
+    timed rounds."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.obs.metrics import enabled_metrics, get_metrics
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+
+    stream = mesh_stream(rounds + 1, ops, seed)
+    capacity = (rounds + 1) * ops
+    shard_docs = docs // shards
+    warm = TorchDocFarm(shard_docs, capacity=capacity, device=device)
+    warm.apply_changes([[stream[0]]] * shard_docs)
+    del warm
+    solo = TorchDocFarm(shard_docs, capacity=capacity, device=device)
+    solo_results = []
+    solo_prof = PhaseProfile()
+    t0 = time.perf_counter()
+    with use_profile(solo_prof):
+        for buf in stream[:rounds]:
+            solo_results.append(solo.apply_changes([[buf]] * shard_docs))
+    _sync(device)
+    solo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = open_mesh(device, docs, shards, "process", transport, capacity,
+                     warm=[stream[0]])
+    spawn_s = time.perf_counter() - t0
+    reg = get_metrics()
+    reg.reset()
+    prof = PhaseProfile()
+    results = []
+    t0 = time.perf_counter()
+    with enabled_metrics(), use_profile(prof):
+        for buf in stream[:rounds]:
+            results.append(mesh.apply_changes([[buf]] * docs))
+    elapsed = time.perf_counter() - t0
+    snap = reg.as_dict()
+    if mesh.transport != transport:
+        raise RuntimeError(f"the mesh resolved to the {mesh.transport} "
+                           f"transport, not {transport}")
+    applied = snap.get("farm.changes.applied", {}).get("value", 0)
+    if applied != docs * rounds:
+        raise RuntimeError(f"the shards committed {applied} changes, want "
+                           f"{docs * rounds}")
+    for r, res in enumerate(results):
+        if res.quarantined or mesh.quarantine:
+            raise RuntimeError(f"round {r} quarantined "
+                               f"{sorted(res.quarantined)[:8]}")
+    traffic = mesh_traffic(snap, shards)
+    if transport == "shm" and any(
+            t["payload_bytes"] or t["stalls"] for t in traffic.values()):
+        raise RuntimeError("a batch or a result left the shm rings for the "
+                           f"pipe: {traffic}")
+    # every doc holds the same stream: one doc per shard against the solo
+    want = [canon(res[0]) for res in solo_results]
+    whole = canon(solo.get_patch(0))
+    for d in sorted({mesh._owners[s][0] for s in range(shards)} | {0}):
+        if [canon(res[d]) for res in results] != want or \
+                canon(mesh.get_patch(d)) != whole:
+            raise RuntimeError(f"mesh doc {d} differs from the solo farm")
+    total = docs * rounds * ops
+    solo_rate = shard_docs * rounds * ops / solo_s
+    cores = len(os.sched_getaffinity(0))
+    return mesh, stream, {
+        "results": results, "elapsed_s": elapsed, "spawn_s": spawn_s,
+        "solo_s": solo_s, "solo_rate": solo_rate, "total_ops": total,
+        "rate": total / elapsed, "wall_scaling": total / elapsed / solo_rate,
+        "traffic": traffic, "prof": prof, "solo_prof": solo_prof,
+        "cores": cores,
+        "applied": applied, "capacity": capacity,
+    }
+
+
+def run_mesh_parity(device, docs, shards, stream, rounds, capacity, want,
+                    flight_dir):
+    """Phase 19 (b)-(d) at `docs` documents, the flight recorder on with
+    `flight_dir` as its dump directory:
+
+    (b) the same deliveries through a process mesh over the pickle
+        transport and an inline mesh: every patch must equal `want[r][d]`,
+        (a)'s canonical patch of doc d in round r;
+    (c) after round 0 doc 0 migrates to another shard of the process mesh
+        (export in one worker, adopt in another) with a clean ``audit()``;
+        its patches stay (a)'s, its whole patch equals an unmigrated doc's,
+        and a second reconcile pass syncs 0;
+    (d) one worker SIGKILLs itself at its next apply (the stream's last
+        change): its docs are quarantined as lost in flight, the worker
+        respawns and re-hydrates, and after release and re-delivery every
+        doc equals the inline mesh's; the dead worker's black box is in
+        the crash dump.
+
+    Returns stats."""
+    from automerge_tpu_torch.obs.flight import enabled_flight, load_jsonl
+
+    inline = open_mesh(device, docs, shards, "inline", "pickle", capacity)
+    stats = {}
+    with enabled_flight(dump_dir=flight_dir) as rec:
+        rec.clear()
+        t0 = time.perf_counter()
+        proc = open_mesh(device, docs, shards, "process", "pickle",
+                         capacity)
+        stats["spawn_s"] = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            for r in range(rounds):
+                per_doc = [[stream[r]]] * docs
+                for name, mesh in (("inline", inline), ("pickle", proc)):
+                    got = mesh.apply_changes(per_doc)
+                    bad = [d for d in range(docs)
+                           if canon(got[d]) != want[r][d]]
+                    if bad:
+                        raise RuntimeError(f"round {r}: the {name} mesh's "
+                                           f"patches of docs {bad[:8]} differ "
+                                           "from the shm run's")
+                if r == 0:
+                    src = proc.shard_of(0)
+                    proc.migrate_doc(0, (src + 1) % shards)
+                    proc.audit()
+                    stats["migrated"] = (src, proc.shard_of(0))
+            stats["parity_s"] = time.perf_counter() - t0
+            other = next(d for d in range(1, docs)
+                         if proc.shard_of(d) == stats["migrated"][0])
+            if canon(proc.get_patch(0)) != canon(proc.get_patch(other)):
+                raise RuntimeError("the migrated doc's patch differs from an "
+                                   "unmigrated doc's")
+            stats["reconcile"] = (proc.reconcile_actors(),
+                                  proc.reconcile_actors())
+            if stats["reconcile"][1] != 0:
+                raise RuntimeError(f"reconcile did not converge: "
+                                   f"{stats['reconcile']}")
+            # (d): the heartbeat sequences behind the black-box flushes
+            if set(proc.heartbeat().values()) != {"ok"}:
+                raise RuntimeError("a worker missed the heartbeat")
+            victim = 1
+            bb_path = proc._handles[victim].spec["blackbox_path"]
+            if not os.path.exists(bb_path):
+                raise RuntimeError("the victim wrote no black box")
+            t0 = time.perf_counter()
+            proc.inject_worker_fault(victim, when="next_apply")
+            per_doc = [[stream[rounds]]] * docs
+            inline.apply_changes(per_doc)
+            res = proc.apply_changes(per_doc)
+            lost = sorted(res.quarantined)
+            owned = sorted(d for d in range(docs)
+                           if proc.shard_of(d) == victim)
+            if lost != owned or not lost:
+                raise RuntimeError(f"the crash quarantined {lost[:8]}, want "
+                                   f"the victim's {owned[:8]}")
+            if sorted(proc.release_quarantine()) != lost:
+                raise RuntimeError("release did not return the lost docs")
+            redo = proc.apply_changes([per_doc[d] if d in set(lost) else []
+                                       for d in range(docs)])
+            if redo.quarantined:
+                raise RuntimeError("the re-delivery was quarantined")
+            stats["recovery_s"] = time.perf_counter() - t0
+            stats["lost"] = len(lost)
+            bad = [d for d in range(docs)
+                   if canon(proc.get_patch(d)) != canon(inline.get_patch(d))]
+            if bad:
+                raise RuntimeError(f"after the crash docs {bad[:8]} differ "
+                                   "from the inline mesh")
+        finally:
+            proc.close()
+            inline.close()
+    dumps = [load_jsonl(open(p, encoding="utf-8").read())
+             for p in rec.dump_paths if p.startswith(flight_dir)]
+    crashes = [(events, e) for events in dumps for e in events
+               if e["event"] == "mesh.worker.crash"]
+    if not crashes:
+        raise RuntimeError("the worker crash left no flight dump")
+    events, crash = crashes[-1]
+    fields = crash["fields"]
+    box = [e for e in events[:events.index(crash)]
+           if e.get("shard") == victim]
+    if fields["shard"] != victim or fields["blackbox"] != bb_path or \
+            not box:
+        raise RuntimeError(f"the crash dump lacks the black box: {fields}")
+    stats["blackbox_events"] = fields["blackbox_events"]
+    stats["worker_events"] = len(box)
+    return stats
+
+
+def run_mesh_catchup(device, mesh, docs, capacity, rec):
+    """Phase 19 (e): a fresh replica ``TorchDocFarm`` of `docs` documents
+    catches up from the first `docs` documents of `mesh` through a
+    ``SyncFarm`` over the mesh (filters built on the controller's device)
+    until no message moves, then every doc must match. Returns
+    (sweeps, seconds)."""
+    from automerge_tpu_torch import SyncFarm, TorchDocFarm
+
+    replica = TorchDocFarm(docs, capacity=capacity, device=device)
+    t0 = time.perf_counter()
+    sweeps = sync_until_quiet(device, SyncFarm(mesh), [SyncFarm(replica)],
+                              docs, rec)
+    seconds = time.perf_counter() - t0
+    check_converged([mesh, replica], docs)
+    return sweeps, seconds
+
+
+def run_mesh_small(device, backend, seed, record):
+    """Phase 4's mesh: ``MESH_SMALL`` docs over its shards (`backend`, the
+    pickle transport), each doc its own stream of one change a round, doc
+    0 migrated after round 1. `record` takes every round's patches, every
+    whole-doc patch and the reconcile counts."""
+    docs, shards, rounds, ops = MESH_SMALL
+    streams = store_streams(docs, rounds, ops, seed)
+    mesh = open_mesh(device, docs, shards, backend, "pickle",
+                     rounds * ops + 8)
+    try:
+        for r in range(rounds):
+            res = mesh.apply_changes([[streams[d][r]] for d in range(docs)])
+            if res.quarantined:
+                raise RuntimeError(f"phase 4 mesh ({backend}): "
+                                   f"{sorted(res.quarantined)} quarantined")
+            record.extend(canon(res[d]) for d in range(docs))
+            if r == 1:
+                mesh.migrate_doc(0, (mesh.shard_of(0) + 1) % shards)
+                mesh.audit()
+        record.extend(canon(mesh.get_patch(d)) for d in range(docs))
+        record.append((mesh.reconcile_actors(), mesh.reconcile_actors()))
+    finally:
+        mesh.close()
+
+
+def check_shm_room(shards):
+    """Phase 19's rings must fit in /dev/shm: a segment past its free
+    space is a SIGBUS at the first write, not an error."""
+    import shutil
+
+    from automerge_tpu_torch.parallel import shm
+
+    slots, slot_bytes = shm.ring_sizes()
+    need = 2 * shards * (slots * slot_bytes + (1 << 12))
+    free = shutil.disk_usage("/dev/shm").free
+    if free < need:
+        raise RuntimeError(f"/dev/shm has {free} bytes free; phase 19's "
+                           f"rings need {need}")
+    return need, free
+
+
+def run_mesh_phase(args, table, card, device):
+    """Phase 19 (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from automerge_tpu_torch.obs.metrics import enabled_metrics, get_metrics
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
+
+    os.environ.setdefault("AM_MESH_SHM_SLOTS", str(MESH_SHM_SLOTS))
+    os.environ.setdefault("AM_MESH_SHM_SLOT_BYTES", str(MESH_SHM_SLOT_BYTES))
+    docs, shards = args.mesh_docs, MESH_SHARDS
+    need, free = check_shm_room(shards)
+    t_phase = time.perf_counter()
+    with counting_fallbacks(), enabled_metrics():
+        mesh, stream, st = run_mesh_throughput(
+            device, docs, shards, MESH_ROUNDS, MESH_OPS, args.seed)
+        try:
+            log(f"phase 19 mesh: {docs} docs over {shards} process workers "
+                f"on {device} (shm transport), {MESH_ROUNDS} rounds of one "
+                f"{MESH_OPS}-op change per doc, card {card}")
+            log(f"  (a) {st['total_ops']} ops in {st['elapsed_s']:.3f} s: "
+                f"{st['rate']:.0f} ops/s aggregate; solo shard-sized farm "
+                f"({docs // shards} docs, this process) {st['solo_rate']:.0f}"
+                f" ops/s; wall_scaling {st['wall_scaling']:.4f} with "
+                f"{st['cores']} usable cores; spawn + warm-up of {shards} "
+                f"workers {st['spawn_s']:.3f} s; changes applied "
+                f"{st['applied']}; /dev/shm {free} bytes free, the rings "
+                f"{need}")
+            for s, t in st["traffic"].items():
+                log(f"    shard {s}: {t['docs']} docs, dispatch "
+                    f"{t['dispatch_s']:.3f} s, pipe payload "
+                    f"{t['payload_bytes']} B / control {t['control_bytes']} "
+                    f"B, rings {t['shm_bytes']} B, stalls {t['stalls']}")
+            for what, prof in (("the workers' phases summed", st["prof"]),
+                               ("the solo farm", st["solo_prof"])):
+                log(f"  phase table ({what}, host clocks):")
+                for line in prof.table().splitlines():
+                    log("    " + line)
+            parity_docs = min(MESH_PARITY_DOCS, docs)
+            want = [[canon(res[d]) for d in range(parity_docs)]
+                    for res in st.pop("results")]
+            root = tempfile.mkdtemp(prefix="chip-smoke-flight-")
+            try:
+                ps = run_mesh_parity(device, parity_docs, shards, stream,
+                                     MESH_ROUNDS, st["capacity"], want, root)
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            log(f"  (b) {parity_docs} docs through the pickle transport and "
+                f"the inline backend: every patch equal to (a)'s "
+                f"({ps['parity_s']:.3f} s; spawn {ps['spawn_s']:.3f} s)")
+            log(f"  (c) doc 0 migrated from shard {ps['migrated'][0]} to "
+                f"{ps['migrated'][1]} after round 0: audit clean, patches "
+                f"unchanged, equal to an unmigrated doc's; reconcile "
+                f"{ps['reconcile']}")
+            log(f"  (d) shard 1's worker SIGKILLed mid-apply: {ps['lost']} "
+                f"docs lost in flight, respawned and re-hydrated, equal to "
+                f"the inline mesh after re-delivery ({ps['recovery_s']:.3f} "
+                f"s); crash dump holds {ps['worker_events']} of its events "
+                f"({ps['blackbox_events']} from its black box)")
+            catch_docs = min(MESH_CATCHUP_DOCS, docs)
+            bk.reset_launch_counts()
+            with recorded_bloom_launches() as (rec_build, rec_query):
+                sweeps, catch_s = run_mesh_catchup(
+                    device, mesh, catch_docs, st["capacity"],
+                    lambda _msg: None)
+            launches = dict(bk.LAUNCHES)
+            log(f"  (e) a fresh replica of {catch_docs} docs caught up "
+                f"through a SyncFarm over the mesh in {len(sweeps)} sweeps "
+                f"({catch_s:.3f} s); kernel launches {launches}")
+            log_sweeps(sweeps)
+        finally:
+            mesh.close()
+        snap = get_metrics().as_dict()
+    walked = {name: snap.get(name, {}).get("value", 0)
+              for name in FALLBACK_COUNTERS}
+    if any(walked.values()):
+        raise RuntimeError(f"phase 19: the degraded walk ran {walked}")
+    check_launched(table, launches, rec_build, rec_query, "mesh", "phase 19")
+    log(f"  whole phase {time.perf_counter() - t_phase:.3f} s")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=512)
@@ -2733,6 +3135,7 @@ def main(argv=None) -> int:
     parser.add_argument("--serve-clients", type=int, default=SERVE_CLIENTS)
     parser.add_argument("--api-docs", type=int, default=API_DOCS)
     parser.add_argument("--cli-docs", type=int, default=CLI_DOCS)
+    parser.add_argument("--mesh-docs", type=int, default=MESH_DOCS)
     args = parser.parse_args(argv)
 
     for name, value in decode_cache_env(args.docs, args.replicas,
@@ -2758,14 +3161,14 @@ def main(argv=None) -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-18 on the card (see the module docstring); raises on the
+    """Phases 1-19 on the card (see the module docstring); raises on the
     first check that fails."""
     import shutil
     import tempfile
 
     import torch
 
-    from automerge_tpu_torch import kernels
+    from automerge_tpu_torch import kernels, native
     from automerge_tpu_torch.profiling import PhaseProfile
     from automerge_tpu_torch.tpu import bloom_kernels as bk
 
@@ -2793,7 +3196,9 @@ def run_phases(args) -> int:
     log(f"phase 2 kernel checks at edge shapes: ok "
         f"({time.perf_counter() - t0:.2f} s)")
 
-    # 3. main path
+    # 3. main path (the native codecs decode on the card's host)
+    if not native.available():
+        raise RuntimeError(f"the native codecs are off: {native.load_error}")
     prof = PhaseProfile()
     bk.reset_launch_counts()
     fallbacks = fallback_counts()
@@ -2827,6 +3232,11 @@ def run_phases(args) -> int:
         f"{server_rows}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     log(f"  kernel launches: {launches}")
+    totals = prof.totals_by_path()
+    farm_s = sum(t for path, (t, _) in totals.items() if "/" not in path)
+    log(f"  native codecs on: {native.available()} ({native.library_path()});"
+        f" decode {totals.get('decode', (0.0, 0))[0] / farm_s:.1%} of the "
+        f"farm phases")
     log("  phase table (main path, host clock):")
     for line in prof.table().splitlines():
         log("    " + line)
@@ -2891,6 +3301,14 @@ def run_phases(args) -> int:
                                      args.seed, record=rec)
         rec.append(repr(check_api(f4, api_clients, f"phase 4 ({dev})")))
         check_no_fallback(fallbacks, [f4], f"phase 4 ({dev})")
+        meshes = {}
+        for backend in ("inline", "process"):
+            run_mesh_small(dev, backend, args.seed,
+                           meshes.setdefault(backend, []))
+        if meshes["inline"] != meshes["process"]:
+            raise RuntimeError(f"phase 4 ({dev}): the process mesh differs "
+                               "from the inline mesh")
+        rec.extend(meshes["inline"])
     if on_card != on_cpu:
         first = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
                      if a != b) if len(on_card) == len(on_cpu) else "length"
@@ -2898,9 +3316,11 @@ def run_phases(args) -> int:
     log(f"phase 4 card vs CPU at 16 docs (v1 sync, mixed v1/v2 sync, 16 "
         f"supervised channels, a store round trip with a torn tail, 64 "
         f"served clients at 30 % chaos with a store attached, 8 docs x "
-        f"{API_CLIENTS} API clients x {API_ROUNDS} rounds against a farm): "
-        f"{len(on_card)} messages, patches, frames, saved sessions, reports "
-        f"and store files identical ({time.perf_counter() - t0:.2f} s)")
+        f"{API_CLIENTS} API clients x {API_ROUNDS} rounds against a farm, "
+        f"a {MESH_SMALL[0]}-doc mesh of {MESH_SMALL[1]} shards inline and "
+        f"over process workers): {len(on_card)} messages, patches, frames, "
+        f"saved sessions, reports and store files identical "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     del f4, clients, pairs, api_clients
 
@@ -3290,6 +3710,9 @@ def run_phases(args) -> int:
 
     # 18. the obs CLI on the card, then its ledger modes
     run_cli_phase(args, programs17, api_rate, device)
+
+    # 19. the doc-sharded mesh: process workers on the card
+    run_mesh_phase(args, table, card, device)
 
     log(card)
     log(json.dumps(table))

@@ -3,7 +3,9 @@ SyncFarm, its sequential engine, text engine and kernels, its backend,
 sync v2, sessions, fault points, flight recorder and fingerprint index,
 its store, serving front door, chaos transport and request-flow
 observability, its public API, frontend and uuid factory, its program
-observatory, ledger and obs CLI included) or chip_smoke.py loads neither
+observatory, ledger and obs CLI, its doc-sharded mesh with its process
+workers and shared-memory rings, and its native codecs included) or
+chip_smoke.py loads neither
 JAX nor anything of the JAX package, and its entry points refuse to fall
 back to the CPU when no card is present. The port's memory sampler reads
 its own codecs module, never the JAX package's."""
@@ -23,6 +25,7 @@ import automerge_tpu_torch.backend
 import automerge_tpu_torch.carry
 import automerge_tpu_torch.frontend
 import automerge_tpu_torch.kernels
+import automerge_tpu_torch.native
 import automerge_tpu_torch.obs
 import automerge_tpu_torch.obs.__main__
 import automerge_tpu_torch.obs.export
@@ -32,6 +35,11 @@ import automerge_tpu_torch.obs.prof
 import automerge_tpu_torch.obs.scope
 import automerge_tpu_torch.obs.slo
 import automerge_tpu_torch.opset
+import automerge_tpu_torch.parallel
+import automerge_tpu_torch.parallel.mesh
+import automerge_tpu_torch.parallel.meshfarm
+import automerge_tpu_torch.parallel.shm
+import automerge_tpu_torch.parallel.workers
 import automerge_tpu_torch.serve
 import automerge_tpu_torch.store
 import automerge_tpu_torch.sync_session
