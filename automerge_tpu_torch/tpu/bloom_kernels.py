@@ -71,14 +71,15 @@ def bloom_build_plain(xyz, counts, num_words: int):
     batch, width, _ = xyz.shape
     modulo = filter_modulo(counts)
     p = _probes(xyz, modulo)  # [P, B, E]
-    live = torch.arange(width, device=xyz.device)[None, :] < counts.long()[:, None]
+    live = torch.arange(width, dtype=torch.int64, device=xyz.device)[None, :] < counts.long()[:, None]
     keep = live[None] & (p < num_words * WORD_BITS)
-    b_idx = torch.arange(batch, device=xyz.device)[None, :, None].expand_as(p)
+    b_idx = torch.arange(batch, dtype=torch.int64, device=xyz.device)[None, :, None].expand_as(p)
     bits = torch.zeros(batch, num_words * WORD_BITS, dtype=torch.bool,
                        device=xyz.device)
     bits[b_idx[keep], p[keep]] = True
     weights = torch.ones(WORD_BITS, dtype=torch.int64, device=xyz.device)
-    weights = weights << torch.arange(WORD_BITS, device=xyz.device)
+    weights = weights << torch.arange(WORD_BITS, dtype=torch.int64,
+                                     device=xyz.device)
     words = (bits.view(batch, num_words, WORD_BITS).long() * weights).sum(-1)
     return _to_i32_bits(words), modulo
 

@@ -207,9 +207,9 @@ def _rle_expand(scan: _Scan, lo: int, hi: int, signed: bool,
     total = int(count_arr.sum())
     if total > row_cap:
         raise _Fallback("row cap exceeded")
-    rec = np.repeat(np.arange(kind_arr.shape[0]), count_arr)
+    rec = np.repeat(np.arange(kind_arr.shape[0], dtype=np.int64), count_arr)
     rec_start = np.concatenate(([0], np.cumsum(count_arr)[:-1]))
-    offset = np.arange(total) - rec_start[rec]
+    offset = np.arange(total, dtype=np.int64) - rec_start[rec]
     row_kind = kind_arr[rec]
     is_lit = row_kind == _LIT
     is_null = row_kind == _NULL
@@ -581,7 +581,8 @@ def leb128_scan_device(data: torch.Tensor):
     lengths = ends + 1 - starts
     if int(lengths.max()) > 8:
         raise _Fallback("varint wider than 8 bytes")
-    pos = torch.arange(n, device=data.device) - starts[seg.long()]
+    pos = torch.arange(n, dtype=torch.int64, device=data.device) \
+        - starts[seg.long()]
     contrib = (data & 0x7F).long() << (7 * pos)
     # 14-bit planes keep every float32 partial sum an exact integer
     planes = torch.stack(

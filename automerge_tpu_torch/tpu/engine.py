@@ -19,6 +19,12 @@ The JAX package writes each program for one document and vmaps it; here the
 ``[docs, width]`` batch dimension is written out and every op works along
 dim 1. Padded rows carry ``key = PAD_KEY`` and sort to the end.
 
+Two front ends share these programs: ``BatchedMapEngine`` keeps each
+document's rows in pages of one slab (paging.py), and the dense
+whole-state form (``BatchedDocState``, ``make_empty_state``,
+``batched_apply_ops``, ``batched_visible_state``) keeps a fixed
+``[docs, capacity]`` table, the engine-level API ``bench.py`` times.
+
 These programs are plain XLA in the JAX package (no Pallas kernel), so
 plain PyTorch ops are their port: stable argsort, ``searchsorted``,
 ``gather``, ``cummax``/``cummin`` and an int64 ``scatter_add_``. Where JAX
@@ -108,9 +114,13 @@ def _dispatch(prog, *args, **kwargs):
 
 def pack_opid(counter, actor):
     """Packs (counter, actorNum) into one int64 preserving Lamport order."""
-    counter = torch.as_tensor(counter).long()
-    actor = torch.as_tensor(actor).long()
+    counter = torch.as_tensor(counter, dtype=torch.int64)
+    actor = torch.as_tensor(actor, dtype=torch.int64)
     return (counter << ACTOR_BITS) | actor
+
+
+def unpack_opid(opid):
+    return opid >> ACTOR_BITS, opid & ACTOR_MASK
 
 
 def remap_opid_actors(opid, actor_rank):
@@ -123,6 +133,53 @@ def remap_opid_actors(opid, actor_rank):
     actor = (opid & ACTOR_MASK).clamp(max=actor_rank.shape[0] - 1)
     rank = actor_rank.long()[actor]
     return (counter << ACTOR_BITS) | rank
+
+
+def _require_device(device, entry: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{entry} runs on the card by default and CUDA is not "
+            "available here; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class BatchedDocState(NamedTuple):
+    """Dense op storage for a batch of map documents: the whole-state
+    form of the engine, without pages (``BatchedMapEngine`` pages it).
+
+    All row tensors have shape [docs, capacity], sorted by (key, opId);
+    padded slots have key == PAD_KEY and sort last. `overwritten` marks ops
+    with at least one non-increment successor (the dense analogue of
+    succNum > 0); `pred` is the packed opId each op overwrites/increments
+    (-1 if none).
+    """
+
+    key: torch.Tensor          # int32 interned key id
+    op: torch.Tensor           # int64 packed opId
+    action: torch.Tensor       # int32 (ACTION_SET / ACTION_INC / ACTION_DEL)
+    value: torch.Tensor        # int64 value payload (interned ref or small int)
+    pred: torch.Tensor         # int64 packed opId, -1 if none
+    overwritten: torch.Tensor  # bool
+    num_ops: torch.Tensor      # int32 [docs] op rows merged so far
+
+
+def make_empty_state(num_docs: int, capacity: int,
+                     device="cuda") -> BatchedDocState:
+    """An empty dense state of `num_docs` documents × `capacity` rows, on
+    the card unless the caller asks for the CPU."""
+    device = _require_device(device, "make_empty_state")
+    shape = (num_docs, capacity)
+    return BatchedDocState(
+        key=torch.full(shape, PAD_KEY, dtype=torch.int32, device=device),
+        op=torch.zeros(shape, dtype=torch.int64, device=device),
+        action=torch.zeros(shape, dtype=torch.int32, device=device),
+        value=torch.zeros(shape, dtype=torch.int64, device=device),
+        pred=torch.full(shape, -1, dtype=torch.int64, device=device),
+        overwritten=torch.zeros(shape, dtype=torch.bool, device=device),
+        num_ops=torch.zeros((num_docs,), dtype=torch.int32, device=device),
+    )
 
 
 class ChangeOpsBatch(NamedTuple):
@@ -185,8 +242,8 @@ def merge_docs(s_key, s_op, s_action, s_value, s_pred, s_over,
     c_pred = c_pred.gather(1, c_order)
 
     pos = torch.searchsorted(s_mkey, c_mkey)
-    new_pos = pos + torch.arange(m, device=dev)
-    t = torch.arange(n, device=dev).expand(a, n).contiguous()
+    new_pos = pos + torch.arange(m, dtype=torch.int64, device=dev)
+    t = torch.arange(n, dtype=torch.int64, device=dev).expand(a, n).contiguous()
     k = torch.searchsorted(new_pos, t, right=True)
     new_idx = (k - 1).clamp(min=0)
     is_new = (k > 0) & (new_pos.gather(1, new_idx) == t)
@@ -222,6 +279,28 @@ def merge_docs(s_key, s_op, s_action, s_value, s_pred, s_over,
     return out_key, out_op, out_action, out_value, out_pred, out_over
 
 
+@profiled_program("engine.apply_ops")
+def _apply_ops(state: BatchedDocState,
+               changes: ChangeOpsBatch) -> BatchedDocState:
+    merged = merge_docs(*state[:6], *changes)
+    # JAX donates the state (donate_argnums=(0,)): here the merged
+    # columns are written into the state's own tensors in place
+    for column, out in zip(state[:6], merged):
+        column.copy_(out)
+    state.num_ops.add_((changes.key != PAD_KEY).sum(1, dtype=torch.int32))
+    return state
+
+
+def batched_apply_ops(state: BatchedDocState,
+                      changes: ChangeOpsBatch) -> BatchedDocState:
+    """applyChanges over a whole document batch: ``merge_docs`` over the
+    dense state, one ``engine.apply_ops`` dispatch. Updates `state` in
+    place and returns it. Change rows that land past the capacity are
+    dropped, as the JAX program drops them, and still count in
+    ``num_ops``."""
+    return _dispatch(_apply_ops, state, changes)
+
+
 @profiled_program("engine.visible_cmp")
 def visible_docs(key, op, action, value, pred, over, cmp):
     """Per-row visibility of each document: the batched form of the JAX
@@ -244,7 +323,7 @@ def visible_docs(key, op, action, value, pred, over, cmp):
     is_inc = is_real & (action == ACTION_INC)
     visible_set = is_set & over.logical_not()
 
-    iota = torch.arange(n, device=dev).expand(a, n)
+    iota = torch.arange(n, dtype=torch.int64, device=dev).expand(a, n)
     is_end = torch.ones_like(is_real)
     is_end[:, :-1] = key[:, :-1] != key[:, 1:]
     ends = torch.where(is_end, iota, torch.full_like(iota, _I32_MAX))
@@ -277,6 +356,24 @@ def visible_docs(key, op, action, value, pred, over, cmp):
     value_total = torch.where(visible_set, value + row_inc,
                               torch.zeros_like(value))
     return key, op, visible_set, winner, value_total
+
+
+def batched_visible_state(state: BatchedDocState, actor_rank=None):
+    """Materialises the visible state of every document: the device-side
+    equivalent of documentPatch (new.js:1604). Returns per-row
+    (key, op, visible, winner, value_total) tensors of shape
+    [docs, capacity].
+
+    `actor_rank` (int32[A], actor intern index -> lexicographic rank) makes
+    counter-tied conflicts resolve on the actor id string exactly like the
+    reference; without it, ties break on actor intern order."""
+    if actor_rank is None:
+        cmp = state.op
+    else:
+        rank = torch.as_tensor(actor_rank, dtype=torch.int32,
+                               device=state.op.device)
+        cmp = remap_opid_actors(state.op, rank)
+    return _dispatch(visible_docs, *state[:6], cmp)
 
 
 @profiled_program("engine.gather_rows")
@@ -393,8 +490,7 @@ class BatchedMapEngine:
         if not docs:
             return
         a_pad, m = changes.key.shape
-        if a_pad < len(docs):
-            raise ValueError("change batch has fewer rows than docs")
+        assert a_pad >= len(docs)
         if counts is None:
             counts = (changes.key != PAD_KEY).sum(1)[: len(docs)].cpu().numpy()
         counts = np.asarray(counts, np.int64)
@@ -485,7 +581,8 @@ class BatchedMapEngine:
             out = _dispatch(paged_visible_plain, self.slab, gidx,
                             page_size=self.pages.page_size)
         else:
-            rank = torch.as_tensor(np.asarray(actor_rank)).to(self.device)
+            rank = torch.as_tensor(np.asarray(actor_rank),
+                                   dtype=torch.int32).to(self.device)
             out = _dispatch(paged_visible_ranked, self.slab, gidx, rank,
                             page_size=self.pages.page_size)
         out = tuple(a[: len(docs_t)] for a in out)
@@ -501,8 +598,7 @@ class BatchedMapEngine:
         pos = {d: i for i, d in enumerate(docs_t)}
         flat = np.concatenate([pos[p[0]] * width + p[1] for p in plan])
         n = int(flat.shape[0])
-        padded = 1 << max(0, n - 1).bit_length()
-        idx = np.zeros(padded, np.int64)
+        idx = np.zeros(self._pow2(n), np.int64)
         idx[:n] = flat
         return torch.from_numpy(idx).to(self.device), n
 
@@ -546,9 +642,10 @@ class BatchedMapEngine:
             actor_rank, docs=docs_t
         )
         idx, n = self._flat_index(plan, visible.shape[1])
-        cut = np.full(idx.shape[0], -1, np.int64)  # pad rows never emit
+        cut = np.full(self._pow2(n), -1, np.int64)  # pad rows never emit
         cut[:n] = np.concatenate([c for _, _, c in plan])
-        rank = torch.as_tensor(np.asarray(actor_rank)).to(self.device)
+        rank = torch.as_tensor(np.asarray(actor_rank),
+                               dtype=torch.int32).to(self.device)
         v, t, e = _to_host(*_dispatch(
             patch_column_rows, visible, totals, op, rank, idx,
             torch.from_numpy(cut).to(self.device),
@@ -589,8 +686,7 @@ class BatchedMapEngine:
         into THIS engine's id space and sorted by merge key. Pages are
         allocated fresh and written whole; host padding keeps the
         page-tail invariant."""
-        if self.page_table[d]:
-            raise ValueError(f"adopt_rows into occupied doc {d}")
+        assert not self.page_table[d], "adopt_rows into an occupied doc"
         n = int(np.asarray(key).shape[0])
         self.lengths[d] = n
         self.version += 1

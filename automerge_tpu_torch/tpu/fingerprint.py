@@ -51,16 +51,19 @@ def _pow2(n: int) -> int:
 @profiled_program("sync.fingerprint_ranges")
 def reduce_ranges(words, starts, ends):
     """XOR-reduces each row's [start, end) span: words [B, E, 8] int32
-    (uint32 bit patterns, E a power of two), starts/ends [B] int32 ->
-    [B, 8] int32. Padded rows (start == end == 0) reduce to zero. Torch
-    has no XOR reduction, so the masked entry axis folds in halves,
+    (uint32 bit patterns, any E), starts/ends [B] int32 -> [B, 8] int32.
+    Padded rows (start == end == 0) reduce to zero. Torch has no XOR
+    reduction, so the masked entry axis is zero-padded to the next power
+    of two (zeros leave an XOR unchanged) and folds in halves,
     log2(E) steps."""
-    width = words.shape[1]
-    if width & (width - 1):
-        raise ValueError(f"entry axis {width} is not a power of two")
+    batch, width = words.shape[0], words.shape[1]
     idx = torch.arange(width, dtype=torch.int32, device=words.device)[None, :]
     mask = (idx >= starts[:, None]) & (idx < ends[:, None])
     folded = words.masked_fill(~mask[:, :, None], 0)
+    pad = _pow2(width) - width
+    if pad:
+        folded = torch.cat([folded, folded.new_zeros(
+            (batch, pad) + tuple(words.shape[2:]))], dim=1)
     while folded.shape[1] > 1:
         half = folded.shape[1] // 2
         folded = folded[:, :half] ^ folded[:, half:]

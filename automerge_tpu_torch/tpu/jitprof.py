@@ -20,10 +20,13 @@ package's ``sync.*`` and ``pallas.*`` counts together.
 =====================================  ==========================================
 JAX program (``automerge_tpu/``)       port (``automerge_tpu_torch/``)
 =====================================  ==========================================
-``engine.apply_ops`` (engine.py:248)   none: the dense whole-state merge has no
-                                       port; ``engine.merge_docs``, the batched
-                                       merge, runs inside ``paging.apply_ops``
-                                       and ``paging.probe_ops``
+``engine.apply_ops`` (engine.py:248)   ``engine.batched_apply_ops`` (the dense
+                                       whole-state merge; ``engine.merge_docs``,
+                                       the batched merge, also runs inside
+                                       ``paging.apply_ops`` and
+                                       ``paging.probe_ops``). The JAX
+                                       ``_grow_state`` has no caller there and
+                                       no port
 ``engine.visible_cmp`` (:324)          ``engine.visible_docs``
 ``engine.gather_rows`` (:350)          ``engine.gather_rows``
 ``paging.apply_ops`` (paging.py:160)   ``paging.paged_apply_ops``

@@ -83,6 +83,10 @@ def _segment_sum(planes, seg_ids, num_segments: int):
     gen = _next_gen()
     if num_segments * p == 0:
         return out, flag, gen
+    # amlint: unprofiled-jit — the launch helper of the
+    # kernel.leb128_segment_sum program; its one other caller,
+    # leb128_segment_sum_path, reads the pass flag back for checks and
+    # logs only, and stays off the observatory on purpose
     err = _lib().leb128_segment_sum_launch(
         planes.data_ptr(), seg_ids.data_ptr(), out.data_ptr(),
         flag.data_ptr(), n, p, num_segments, gen,

@@ -60,7 +60,7 @@ def _rga_rank_docs(parent, opid, valid):
     dev = parent.device
     rounds = max(int(e - 1).bit_length(), 1)
     sent = e  # sentinel node: end of list / the virtual root's "no next"
-    iota = torch.arange(e, device=dev).expand(docs, e)
+    iota = torch.arange(e, dtype=torch.int64, device=dev).expand(docs, e)
 
     def with_sentinel(t):
         return torch.cat([t, t.new_full((docs, 1), sent)], dim=1)

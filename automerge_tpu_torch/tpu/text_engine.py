@@ -230,14 +230,15 @@ class BatchedTextEngine:
             actor_rank = self._actor_rank()
         dev = self.device
         valid = (
-            torch.arange(self.elem_capacity, device=dev)[None, :]
+            torch.arange(self.elem_capacity, dtype=torch.int64,
+                         device=dev)[None, :]
             < torch.from_numpy(self.num_elems).to(dev)[:, None]
         )
         ranks = batched_rga_rank(
             torch.from_numpy(self.elem_parent).to(dev),
             torch.from_numpy(self.elem_opid).to(dev),
             valid,
-            torch.as_tensor(np.asarray(actor_rank)).to(dev),
+            torch.as_tensor(np.asarray(actor_rank), dtype=torch.int32).to(dev),
         )
         return ranks.cpu().numpy()
 

@@ -3,8 +3,10 @@
 NumPy counterpart of the JAX package's ``tpu/transcode.py``: the interners,
 the actor-rank table, the column helpers of patch assembly and the
 columnar causal-gate verdicts, which the farm (tpu/farm.py) builds its
-device batches from. (The JAX module's standalone ``BatchTranscoder`` is
-not used by the farm and is not part of this package.)
+device batches from, and ``BatchTranscoder``, the engine-level entry point
+that packs frontend op dicts into ``ChangeOpsBatch`` tensors for
+``BatchedMapEngine`` or the dense state (``batched_apply_ops``) and
+decodes their visible rows back into document trees.
 
 The variable-length columnar encodings (LEB128/RLE, backend/encoding.js) are
 hostile to fixed-width SIMD, so the TPU engine works on dense interned
@@ -22,10 +24,30 @@ ops become set-ops whose value is a child reference; the host rebuilds the
 tree from the flat winner rows."""
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
 
-from .engine import ACTOR_BITS, ACTOR_MASK, _MKEY_OP_BITS as _SLOT_SHIFT
-from ..errors import PackingLimitError
+import numpy as np
+import torch
+
+from .engine import (
+    ACTION_DEL,
+    ACTION_INC,
+    ACTION_SET,
+    ACTOR_BITS,
+    ACTOR_MASK,
+    PAD_KEY,
+    _MKEY_OP_BITS as _SLOT_SHIFT,
+    ChangeOpsBatch,
+    _require_device,
+    changes_from_numpy,
+)
+from ..common import parse_op_id
+from ..errors import EncodeError, PackingLimitError
+from ..obs.metrics import get_metrics
+
+_M_ROWS = get_metrics().counter(
+    "transcode.rows", "ops packed into dense rows by BatchTranscoder"
+)
 
 # Slot ids ride the high bits of the engine's packed int64 merge key
 # (slot << 44 | opid): 63 value bits - 44 opid bits = 19 bits of slot before
@@ -34,6 +56,12 @@ from ..errors import PackingLimitError
 # 2^24 and actor intern indexes at 2^20.
 _MAX_SLOTS = 1 << 19
 _MAX_COUNTER = 1 << 24
+
+
+class ChildRef(NamedTuple):
+    """Interned value marking 'this key holds the object with this id'."""
+
+    object_id: str
 
 
 def actor_rank_table(actors, pad_to=None):
@@ -66,7 +94,7 @@ class _Interner:
 
     def intern(self, value) -> int:
         # Key by (class, value): Python equates 1 == True and
-        # tuple == NamedTuple (so a user tuple could collide with a ChildObj
+        # tuple == NamedTuple (so a user tuple could collide with a ChildRef
         # under plain value keying), but distinct classes must intern apart.
         try:
             key = (value.__class__, value)
@@ -122,8 +150,8 @@ def ragged_spans(sorted_mkey, slots):
     total = int(counts.sum())
     idx = np.repeat(
         lo - np.concatenate(([0], counts.cumsum()[:-1])), counts
-    ) + np.arange(total)
-    grp = np.repeat(np.arange(slots.shape[0]), counts)
+    ) + np.arange(total, dtype=np.int64)
+    grp = np.repeat(np.arange(slots.shape[0], dtype=np.int64), counts)
     return lo, counts, idx, grp
 
 
@@ -180,3 +208,117 @@ def gate_verdicts(dep_idx, dep_counts):
             break
         batch = new
     return batch
+
+
+def _host(a) -> np.ndarray:
+    """A host array of `a`: a tensor is copied off its device."""
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
+class BatchTranscoder:
+    """Interns actors/(object, key) slots/values for one document batch and
+    packs change ops into ChangeOpsBatch tensors."""
+
+    def __init__(self):
+        self.actors = _Interner(max_size=1 << ACTOR_BITS, name="actor")
+        self.slots = _Interner(max_size=_MAX_SLOTS, name="slot")
+        # amlint: disable=AM103 — value ids are payloads, never packed into
+        # merge keys, so the table has no bit-field cap
+        self.values = _Interner()
+        self.object_types = {"_root": "map"}  # objectId -> map | table
+
+    def pack_opid_str(self, op_id: str) -> int:
+        p = parse_op_id(op_id)
+        if p.counter >= _MAX_COUNTER:
+            raise PackingLimitError(
+                f"op counter {p.counter} exceeds the merge-key packing range"
+            )
+        return (p.counter << ACTOR_BITS) | self.actors.intern(p.actor_id)
+
+    def slot_id(self, obj: str, key: str) -> int:
+        return self.slots.intern((obj, key))
+
+    def op_row(self, op: dict, op_counter: int, actor: str):
+        """Converts one map-family change op dict (frontend format) into a
+        dense row (slot, op, action, value, pred). Supports set/inc/del on
+        maps and table rows, plus makeMap/makeTable child creation."""
+        if op_counter >= _MAX_COUNTER:
+            raise PackingLimitError(
+                f"op counter {op_counter} exceeds the merge-key packing range"
+            )
+        packed_id = (op_counter << ACTOR_BITS) | self.actors.intern(actor)
+        slot = self.slot_id(op.get("obj", "_root"), op["key"])
+        pred = self.pack_opid_str(op["pred"][0]) if op.get("pred") else -1
+        action = op["action"]
+        if action == "set":
+            if op.get("datatype") == "counter":
+                return slot, packed_id, ACTION_SET, int(op["value"]), pred
+            return slot, packed_id, ACTION_SET, self.values.intern(op.get("value")), pred
+        if action in ("makeMap", "makeTable"):
+            child_id = f"{op_counter}@{actor}"
+            self.object_types[child_id] = "map" if action == "makeMap" else "table"
+            value = self.values.intern(ChildRef(child_id))
+            return slot, packed_id, ACTION_SET, value, pred
+        if action == "inc":
+            return slot, packed_id, ACTION_INC, int(op["value"]), pred
+        if action == "del":
+            return slot, packed_id, ACTION_DEL, 0, pred
+        raise EncodeError(f"Unsupported op action for the dense engine: {action}")
+
+    def changes_to_batch(self, per_doc_ops, width=None,
+                         device="cuda") -> ChangeOpsBatch:
+        """`per_doc_ops` is a list (one entry per document) of lists of
+        (op_dict, op_counter, actor) tuples. Returns a padded ChangeOpsBatch
+        on `device`: the card unless the caller asks for the CPU."""
+        device = _require_device(device, "changes_to_batch")
+        num_docs = len(per_doc_ops)
+        if _M_ROWS.enabled:
+            _M_ROWS.inc(sum(len(ops) for ops in per_doc_ops))
+        m = width or max((len(ops) for ops in per_doc_ops), default=1) or 1
+        keys = np.full((num_docs, m), PAD_KEY, np.int32)
+        ops = np.zeros((num_docs, m), np.int64)
+        actions = np.zeros((num_docs, m), np.int32)
+        values = np.zeros((num_docs, m), np.int64)
+        preds = np.full((num_docs, m), -1, np.int64)
+        for d, doc_ops in enumerate(per_doc_ops):
+            for i, (op, ctr, actor) in enumerate(doc_ops):
+                keys[d, i], ops[d, i], actions[d, i], values[d, i], preds[d, i] = (
+                    self.op_row(op, ctr, actor)
+                )
+        return changes_from_numpy(keys, ops, actions, values, preds, device)
+
+    def decode_visible(self, keys, ops, winners, values, counter_slots=()):
+        """Converts one document's per-row visibility rows (from
+        batched_visible_state or ``BatchedMapEngine.visible_state``: tensors
+        on any device, or host arrays) back into the document's Python
+        tree, rooted at `_root`. `counter_slots` is the set of slot ids
+        whose winning value is a raw counter total rather than an interned
+        ref. Nested maps/table rows appear as nested dicts, reconstructed by
+        following ChildRef winner values — the host-side analogue of the
+        reference's objectMeta tree walk (new.js:1461, setupPatches)."""
+        counter_slots = set(counter_slots)
+        keys = _host(keys)
+        winners = _host(winners)
+        values = _host(values)
+        # flat winner table: objectId -> {key: scalar | ChildRef}
+        objects = {}
+        for i in np.nonzero(winners)[0]:
+            slot = int(keys[i])
+            if slot == PAD_KEY:
+                continue
+            obj, key = self.slots.lookup(slot)
+            if slot in counter_slots:
+                value = int(values[i])
+            else:
+                value = self.values.lookup(int(values[i]))
+            objects.setdefault(obj, {})[key] = value
+
+        def build(object_id):
+            out = {}
+            for key, value in objects.get(object_id, {}).items():
+                out[key] = build(value.object_id) if isinstance(value, ChildRef) else value
+            return out
+
+        return build("_root")

@@ -32,10 +32,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and phase 13's supervised channels at 16 documents, phase 15's store
    at 16 documents, phase 16's serving at 64 clients over 16 docs with
    30 % chaos and a store attached, phase 17's API clients at 8
-   documents, and a 16-doc ``MeshFarm`` of 4 shards (inline, then over
-   process workers on the pickle transport; doc 0 migrated mid-run), once
-   on the card and once on the CPU: every sync message, patch, session
-   frame, saved session, load report, store file and ``save()`` must be
+   documents, a 16-doc ``MeshFarm`` of 4 shards (inline, then over
+   process workers on the pickle transport; doc 0 migrated mid-run), and
+   phase 20's dense merge at 16 docs, once on the card and once on the
+   CPU: every sync message, patch, session frame, saved session, load
+   report, store file, ``save()`` and dense column must be
    byte-identical, and the two meshes' patches too;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
    card, bit-exact, at edge inputs (``segsum_edge_inputs``), each of which
@@ -151,6 +152,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    replica of 256 docs catches up through a ``SyncFarm`` over the mesh
    (its filters on the card), and both Bloom kernels are held bit-exact
    at that phase's largest launches (the ``mesh`` entry of their rows).
+20. the engine-level API: (a) ``bench.py``'s device workload
+   (``bench_device`` at its defaults: 8,192 docs x 8 rounds x 64 ops,
+   capacity 512; keys in [0, 64), one actor, SET, no preds,
+   drawn from ``--seed`` as bench.py draws them) through the dense
+   whole-state merge: the batches staged on the card, one warm-up, then
+   8 ``batched_apply_ops`` and one ``batched_visible_state`` timed to a
+   synchronize (ops/s); (b) the same at ``BASELINE.json``'s 100k-doc
+   batch (100,000 docs), with the peak device memory.
+   Each run's ``engine.apply_ops`` dispatches must equal the merges
+   issued, and its first 256 docs must equal a CPU run on those docs in
+   all 7 state and 5 visibility columns. Then a ``BatchTranscoder`` +
+   ``BatchedMapEngine`` round of 64 docs (nested maps, tables, counters)
+   must decode to the same documents on the card as on the CPU, and
+   ``python -m automerge_tpu_torch.analysis`` must exit 0. No kernel runs
+   on this path: the dense merge is plain torch, as the JAX one is XLA.
 
 Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19) fails if the degraded walk served
 a document (``farm.fallback.calls`` moved, or a farm has ``degraded``
@@ -3120,6 +3136,330 @@ def run_mesh_phase(args, table, card, device):
     log(f"  whole phase {time.perf_counter() - t_phase:.3f} s")
 
 
+# phase 20: bench.py's device workload (bench_device, _child_main): docs x
+# rounds x ops per round, capacity rounds x ops; and BASELINE.json's
+# 100k-doc batch at the same per-doc shape
+DENSE_DOCS, DENSE_BIG_DOCS, DENSE_ROUNDS, DENSE_OPS = 8192, 100_000, 8, 64
+DENSE_KEYS = 64
+# phase 20: docs each run's card rows are held against a CPU run on; the
+# BatchTranscoder round's docs, rounds and ops per change
+DENSE_CHECK_DOCS, TRANSCODER_DOCS, TRANSCODER_ROUNDS, TRANSCODER_OPS = (
+    256, 64, 8, 6)
+
+
+def dense_batches(docs, rounds, ops, seed):
+    """bench.py's device workload as host arrays, drawn as ``bench_device``
+    draws it: per round, keys in [0, 64), op = counter << 20 | 1 (one actor,
+    counters running on across rounds), SET actions, random values, no
+    preds. Returns one (key, op, action, value, pred) tuple per round."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for r in range(rounds):
+        keys = rng.integers(0, DENSE_KEYS, (docs, ops)).astype(np.int32)
+        ctrs = (r * ops + np.arange(1, ops + 1))[None, :] * np.ones(
+            (docs, 1), np.int64)
+        op = (ctrs.astype(np.int64) << 20) | 1
+        values = rng.integers(0, 10**6, (docs, ops)).astype(np.int64)
+        out.append((keys, op, np.zeros((docs, ops), np.int32), values,
+                    np.full((docs, ops), -1, np.int64)))
+    return out
+
+
+def dense_bound_ms(docs, capacity, rounds, ops):
+    """The least time the card could take for phase 20's timed work, by
+    bytes: each merge reads and writes the whole state (33 B a row: key
+    4, op 8, action 4, value 8, pred 8, overwritten 1; num_ops 4 a doc)
+    and reads its batch (32 B an op); the visibility pass reads the state
+    and writes 22 B a row (key 4, op 8, visible 1, winner 1, total 8)."""
+    state = docs * capacity * 33 + docs * 4
+    merges = rounds * (2 * state + docs * ops * 32)
+    return (merges + state + docs * capacity * 22) / HBM_BYTES_PER_S * 1e3
+
+
+def run_dense(device, batches, capacity, warm=True):
+    """Phase 20 (a)/(b): the dense whole-state merge as bench.py times it.
+    The batches are staged on `device` first; with `warm`, one merge and
+    one visibility pass on a throwaway state run before the clock. Then
+    every round merges (``batched_apply_ops``) and one
+    ``batched_visible_state`` follows, ending in a synchronize. Returns
+    (state, visibility, seconds)."""
+    from automerge_tpu_torch.tpu import engine
+
+    docs = batches[0][0].shape[0]
+    staged = [engine.changes_from_numpy(*b, device=device) for b in batches]
+    if warm:
+        w = engine.batched_apply_ops(
+            engine.make_empty_state(docs, capacity, device=device), staged[0])
+        engine.batched_visible_state(w)
+        del w
+    state = engine.make_empty_state(docs, capacity, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for batch in staged:
+        state = engine.batched_apply_ops(state, batch)
+    vis = engine.batched_visible_state(state)
+    _sync(device)
+    return state, vis, time.perf_counter() - t0
+
+
+def dense_breakdown(device, batches, capacity, top=6):
+    """One torch.profiler trace of phase 20's timed work on a fresh state
+    (the merges of the staged batches and one visibility pass, ending in a
+    synchronize), for the record: the host clock, the device's busy time
+    and idle share, its op count and the device ops that take most of it.
+    None, with the reason logged, when the profiler fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from automerge_tpu_torch.tpu import engine
+
+    docs = batches[0][0].shape[0]
+    staged = [engine.changes_from_numpy(*b, device=device) for b in batches]
+    state = engine.make_empty_state(docs, capacity, device=device)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch in staged:
+                state = engine.batched_apply_ops(state, batch)
+            engine.batched_visible_state(state)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+    except Exception as exc:  # noqa: BLE001 - a record, not a check
+        log(f"  dense breakdown: the profiler failed: {exc!r}")
+        return None
+    ops, launches = {}, 0
+    for evt in events:
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        ops[evt.key] = ops.get(evt.key, 0.0) + dev_us / 1e3
+        launches += evt.count
+    busy = sum(ops.values())
+    return {
+        "wall_ms": wall_ms, "device_ms": busy, "device_ops": launches,
+        "device_idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
+        "top": [[name[:72], ms, ms / busy if busy else None]
+                for name, ms in sorted(ops.items(), key=lambda kv: -kv[1])
+                [:top]],
+    }
+
+
+def dense_columns(state, vis, docs):
+    """The 7 state columns and 5 visibility columns of the first `docs`
+    docs, as host arrays."""
+    return [np.asarray(c[:docs].cpu()) for c in (*state, *vis)]
+
+
+def check_dense(device, batches, capacity, state, vis, what):
+    """Docs are independent: the first ``DENSE_CHECK_DOCS`` docs of a run
+    on `device` must equal a CPU run on those docs alone, every column
+    exactly. Returns the number of docs compared."""
+    n = min(DENSE_CHECK_DOCS, batches[0][0].shape[0])
+    small = [tuple(c[:n] for c in b) for b in batches]
+    cpu_state, cpu_vis, _ = run_dense("cpu", small, capacity, warm=False)
+    names = ("key", "op", "action", "value", "pred", "overwritten",
+             "num_ops", "vis.key", "vis.op", "visible", "winner",
+             "value_total")
+    for name, got, want in zip(names, dense_columns(state, vis, n),
+                               dense_columns(cpu_state, cpu_vis, n)):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise RuntimeError(f"{what}: column {name} of the first {n} docs "
+                               f"differs between {device} and the CPU")
+    return n
+
+
+def transcoder_stream(docs, rounds, ops, seed):
+    """Seeded frontend op dicts for ``BatchTranscoder``: per round and doc
+    one change of 1..`ops` ops by one of 3 actors, with deps on everything
+    before it: sets (uint values and strings) on 8 keys of the root map
+    and of nested maps, makeMap and makeTable children, deletes, counters
+    on the root map and increments of them. Returns ``rounds`` lists of
+    per-doc ``(actor, seq, start_op, ops)``, and per doc the root keys
+    that hold counters."""
+    rng = random.Random(seed)
+    actors = ["aaaaaaaa", "bbbbbbbb", "cccccccc"]
+    objects = [["_root"] for _ in range(docs)]
+    last_op = [{} for _ in range(docs)]    # (obj, key) -> (opId, counter?)
+    seqs = [dict.fromkeys(actors, 0) for _ in range(docs)]
+    max_op = [0] * docs
+    counters = [set() for _ in range(docs)]
+    out = []
+    for _ in range(rounds):
+        per_doc = []
+        for d in range(docs):
+            actor = rng.choice(actors)
+            seqs[d][actor] += 1
+            start = ctr = max_op[d] + 1
+            change_ops = []
+            for _ in range(rng.randrange(1, ops + 1)):
+                obj = rng.choice(objects[d])
+                key = f"k{rng.randrange(8)}"
+                prev = last_op[d].get((obj, key))
+                pred = [prev[0]] if prev else []
+                roll = rng.random()
+                if prev and prev[1]:
+                    if roll < 0.6:
+                        change_ops.append({"action": "inc", "obj": obj,
+                                           "key": key, "pred": pred,
+                                           "value": rng.randrange(1, 10)})
+                        ctr += 1
+                    continue  # counters are only incremented
+                if roll < 0.12:
+                    action = "makeMap" if roll < 0.08 else "makeTable"
+                    op = {"action": action, "obj": obj, "key": key,
+                          "pred": pred}
+                    objects[d].append(f"{ctr}@{actor}")
+                elif roll < 0.22 and prev:
+                    op = {"action": "del", "obj": obj, "key": key,
+                          "pred": pred}
+                elif roll < 0.3 and prev is None and obj == "_root":
+                    op = {"action": "set", "obj": obj, "key": key,
+                          "datatype": "counter", "pred": [],
+                          "value": rng.randrange(100)}
+                    counters[d].add(key)
+                elif roll < 0.4:
+                    op = {"action": "set", "obj": obj, "key": key,
+                          "pred": pred, "value": f"s{rng.randrange(50)}"}
+                else:
+                    op = {"action": "set", "obj": obj, "key": key,
+                          "datatype": "uint", "pred": pred,
+                          "value": rng.randrange(1000)}
+                if op["action"] == "del":
+                    last_op[d].pop((obj, key), None)
+                else:
+                    last_op[d][(obj, key)] = (
+                        f"{ctr}@{actor}", op.get("datatype") == "counter")
+                change_ops.append(op)
+                ctr += 1
+            max_op[d] = ctr - 1
+            per_doc.append((actor, seqs[d][actor], start, change_ops))
+        out.append(per_doc)
+    return out, counters
+
+
+def run_transcoder(device, stream, counters, capacity=64, tpu=None):
+    """One ``BatchTranscoder`` + ``BatchedMapEngine`` run over
+    ``transcoder_stream``'s rounds (one ``apply_batch`` a round), decoded
+    per doc by ``decode_visible``. `tpu` defaults to this package's
+    ``automerge_tpu_torch.tpu`` on `device`; another package's ``tpu``
+    module runs on its own default device. Returns the decoded docs."""
+    if tpu is None:
+        from automerge_tpu_torch import tpu
+
+        engine = tpu.BatchedMapEngine(len(counters), capacity=capacity,
+                                      device=device)
+        kwargs = {"device": device}
+    else:
+        engine = tpu.BatchedMapEngine(len(counters), capacity=capacity)
+        kwargs = {}
+    tr = tpu.BatchTranscoder()
+    for per_doc in stream:
+        rows = [[(op, start + i, actor) for i, op in enumerate(change_ops)]
+                for actor, _seq, start, change_ops in per_doc]
+        engine.apply_batch(tr.changes_to_batch(rows, **kwargs))
+    keys, ops, _visible, winners, values = engine.visible_state()
+    return [
+        tr.decode_visible(keys[d], ops[d], winners[d], values[d],
+                          {tr.slot_id("_root", k) for k in counters[d]})
+        for d in range(len(counters))
+    ]
+
+
+def run_dense_phase(args, card, device):
+    """Phase 20 (see the module docstring)."""
+    import torch
+
+    from automerge_tpu_torch.obs.prof import enabled_observatory, \
+        get_observatory
+
+    t_phase = time.perf_counter()
+    capacity = DENSE_ROUNDS * DENSE_OPS
+    obs = get_observatory()
+    rates = {}
+    for tag, docs in (("a", DENSE_DOCS), ("b", DENSE_BIG_DOCS)):
+        t0 = time.perf_counter()
+        batches = dense_batches(docs, DENSE_ROUNDS, DENSE_OPS, args.seed)
+        gen_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        with enabled_observatory():
+            obs.reset()
+            state, vis, elapsed = run_dense(device, batches, capacity)
+            applied = obs.program("engine.apply_ops").dispatches
+            visible = obs.program("engine.visible_cmp").dispatches
+            obs.reset()
+        peak = torch.cuda.max_memory_allocated()
+        if applied != DENSE_ROUNDS + 1 or visible != 2:
+            raise RuntimeError(
+                f"phase 20 ({tag}): {applied} engine.apply_ops and {visible} "
+                f"engine.visible_cmp dispatches for {DENSE_ROUNDS + 1} merges "
+                f"and 2 visibility passes issued")
+        total = docs * DENSE_ROUNDS * DENSE_OPS
+        num_ops = state.num_ops.cpu().numpy()
+        if not (num_ops == DENSE_ROUNDS * DENSE_OPS).all():
+            raise RuntimeError(f"phase 20 ({tag}): num_ops off the ops "
+                               f"merged")
+        rows = int((state.key != (2**31 - 1)).sum())
+        winners = int(vis[3].sum())
+        if rows != total or any(tuple(c.shape) != (docs, capacity)
+                                for c in (*state[:6], *vis)):
+            raise RuntimeError(f"phase 20 ({tag}): {rows} rows held, want "
+                               f"{total}, or a column off [{docs}, "
+                               f"{capacity}]")
+        t1 = time.perf_counter()
+        n = check_dense(device, batches, capacity, state, vis,
+                        f"phase 20 ({tag})")
+        check_s = time.perf_counter() - t1
+        rates[tag] = total / elapsed
+        bound = dense_bound_ms(docs, capacity, DENSE_ROUNDS, DENSE_OPS)
+        log(f"phase 20 ({tag}) dense whole-state merge (bench.py's device "
+            f"workload): {docs} docs x {DENSE_ROUNDS} rounds x {DENSE_OPS} "
+            f"ops, capacity {capacity}, card {card}")
+        log(f"  {total} ops in {elapsed:.6f} s ({DENSE_ROUNDS} merges + one "
+            f"visibility pass, synchronized): {total / elapsed:.1f} ops/s; "
+            f"bytes bound {bound:.4f} ms ({elapsed * 1e3 / bound:.1f}x); "
+            f"{winners} winning rows; peak device memory {peak} B "
+            f"({peak / 2**30:.3f} GiB); batches drawn in {gen_s:.3f} s; "
+            f"engine.apply_ops dispatches {applied} = merges issued "
+            f"(warm-up included); first {n} docs equal to a CPU run, all 12 "
+            f"columns ({check_s:.3f} s)")
+        del state, vis
+        trace = dense_breakdown(device, batches, capacity)
+        if trace is not None:
+            log(f"  trace (torch.profiler, one more run): {json.dumps(trace)}")
+        del batches
+    # the engine-level API: BatchTranscoder + BatchedMapEngine, card vs CPU
+    t0 = time.perf_counter()
+    stream, counters = transcoder_stream(TRANSCODER_DOCS, TRANSCODER_ROUNDS,
+                                         TRANSCODER_OPS, args.seed)
+    on_card = run_transcoder(device, stream, counters)
+    on_cpu = run_transcoder("cpu", stream, counters)
+    if canon(on_card) != canon(on_cpu):
+        raise RuntimeError("phase 20: the BatchTranscoder round decodes "
+                           "differently on the card and the CPU")
+    log(f"  BatchTranscoder + BatchedMapEngine: {TRANSCODER_DOCS} docs x "
+        f"{TRANSCODER_ROUNDS} rounds decode to the same documents on the "
+        f"card and the CPU ({time.perf_counter() - t0:.3f} s)")
+    # the port's amlint on the card's host
+    t0 = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, "-m", "automerge_tpu_torch.analysis"],
+        capture_output=True, text=True, timeout=300)
+    if lint.returncode != 0:
+        raise RuntimeError(f"phase 20: python -m automerge_tpu_torch.analysis "
+                           f"exited {lint.returncode}: "
+                           f"{(lint.stdout + lint.stderr)[-2000:]}")
+    log(f"  python -m automerge_tpu_torch.analysis: rc 0, "
+        f"{lint.stdout.strip().splitlines()[-1]} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    log(f"  whole phase {time.perf_counter() - t_phase:.3f} s; "
+        f"ops/s (a) {rates['a']:.1f}, (b) {rates['b']:.1f}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=512)
@@ -3161,7 +3501,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-19 on the card (see the module docstring); raises on the
+    """Phases 1-20 on the card (see the module docstring); raises on the
     first check that fails."""
     import shutil
     import tempfile
@@ -3309,6 +3649,10 @@ def run_phases(args) -> int:
             raise RuntimeError(f"phase 4 ({dev}): the process mesh differs "
                                "from the inline mesh")
         rec.extend(meshes["inline"])
+        state, vis, _ = run_dense(
+            dev, dense_batches(16, DENSE_ROUNDS, DENSE_OPS, args.seed),
+            DENSE_ROUNDS * DENSE_OPS, warm=False)
+        rec.extend(c.tobytes() for c in dense_columns(state, vis, 16))
     if on_card != on_cpu:
         first = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
                      if a != b) if len(on_card) == len(on_cpu) else "length"
@@ -3318,7 +3662,8 @@ def run_phases(args) -> int:
         f"served clients at 30 % chaos with a store attached, 8 docs x "
         f"{API_CLIENTS} API clients x {API_ROUNDS} rounds against a farm, "
         f"a {MESH_SMALL[0]}-doc mesh of {MESH_SMALL[1]} shards inline and "
-        f"over process workers): {len(on_card)} messages, patches, frames, "
+        f"over process workers, 16 docs of phase 20's dense merge): "
+        f"{len(on_card)} messages, patches, frames, "
         f"saved sessions, reports and store files identical "
         f"({time.perf_counter() - t0:.2f} s)")
 
@@ -3713,6 +4058,10 @@ def run_phases(args) -> int:
 
     # 19. the doc-sharded mesh: process workers on the card
     run_mesh_phase(args, table, card, device)
+
+    # 20. the engine-level API: bench.py's dense whole-state merge, then
+    # BASELINE's 100k-doc batch, a BatchTranscoder round, the port's amlint
+    run_dense_phase(args, card, device)
 
     log(card)
     log(json.dumps(table))

@@ -72,10 +72,28 @@ def test_reduction_bit_identical_to_jax(batch, width, seed):
 
 
 def test_reduction_refuses_a_width_that_is_not_a_power_of_two():
-    words = torch.zeros((1, 3, 8), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        fingerprint.reduce_ranges(words, torch.zeros(1, dtype=torch.int32),
-                                  torch.ones(1, dtype=torch.int32))
+    """A width that is not a power of two is not refused, as the JAX
+    program refuses none: the entry axis pads to the next power of two
+    inside ``reduce_ranges`` and the padding reduces to nothing."""
+    words = torch.arange(24, dtype=torch.int32).reshape(1, 3, 8)
+    got = fingerprint.reduce_ranges(words, torch.zeros(1, dtype=torch.int32),
+                                    torch.full((1,), 3, dtype=torch.int32))
+    assert torch.equal(got[0], words[0, 0] ^ words[0, 1] ^ words[0, 2])
+
+
+@pytest.mark.parametrize("width", [1, 3, 6, 100, 1024])
+def test_reduction_any_width_matches_jax(width):
+    """Entry widths that are not powers of two reduce bit-identically to
+    the JAX ``sync.fingerprint_ranges`` program; padded rows reduce to
+    zero."""
+    words, starts, ends = _reduction_inputs(12, width, 100 + width)
+    want = np.asarray(jax_fingerprint.fingerprint_ranges_kernel(
+        words, starts, ends))
+    got = fingerprint.reduce_ranges(
+        torch.from_numpy(words.view(np.int32)), torch.from_numpy(starts),
+        torch.from_numpy(ends)).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    assert not got[2::4].any()
 
 
 def test_index_matches_jax_index():

@@ -4,7 +4,8 @@ sync v2, sessions, fault points, flight recorder and fingerprint index,
 its store, serving front door, chaos transport and request-flow
 observability, its public API, frontend and uuid factory, its program
 observatory, ledger and obs CLI, its doc-sharded mesh with its process
-workers and shared-memory rings, and its native codecs included) or
+workers and shared-memory rings, its native codecs, its engine-level API
+(``BatchTranscoder`` and the dense state) and its amlint included) or
 chip_smoke.py loads neither
 JAX nor anything of the JAX package, and its entry points refuse to fall
 back to the CPU when no card is present. The port's memory sampler reads
@@ -21,6 +22,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PROBE = """
 import sys
 import automerge_tpu_torch
+import automerge_tpu_torch.analysis
+import automerge_tpu_torch.analysis.__main__
 import automerge_tpu_torch.backend
 import automerge_tpu_torch.carry
 import automerge_tpu_torch.frontend
@@ -53,7 +56,10 @@ import automerge_tpu_torch.tpu.decode
 import automerge_tpu_torch.tpu.leb_kernels
 import automerge_tpu_torch.tpu.rga
 import automerge_tpu_torch.tpu.text_engine
+import automerge_tpu_torch.tpu.transcode
 import chip_smoke
+from automerge_tpu_torch.tpu import (BatchTranscoder, batched_apply_ops,
+                                     batched_visible_state, make_empty_state)
 from automerge_tpu_torch.tpu.farm import TorchDocFarm
 from automerge_tpu_torch.tpu.sync_farm import SyncFarm
 leaked = sorted(

@@ -30,7 +30,7 @@ PACKAGES = {
 
 #: every program the port registers (tpu/jitprof.py's roster)
 PROGRAMS = (
-    "engine.visible_cmp", "engine.gather_rows",
+    "engine.apply_ops", "engine.visible_cmp", "engine.gather_rows",
     "paging.apply_ops", "paging.probe_ops", "paging.visible_plain",
     "paging.visible_ranked", "paging.patch_column_rows",
     "paging.dense_view", "paging.adopt_rows",
@@ -294,9 +294,9 @@ def test_enabled_observatory_restores_prior_state():
 
 def test_roster_registers_every_program_under_the_jax_name():
     """Importing the port's tpu layer registers every program it has: the
-    JAX package's roster (tests/test_prof.py) less ``engine.apply_ops``,
-    which has no single counterpart (tpu/jitprof.py), plus the three CUDA
-    kernel wrappers as ``kernel.*`` for the JAX ``pallas.*``."""
+    JAX package's roster (tests/test_prof.py), ``engine.apply_ops`` (the
+    dense whole-state merge) included, with the three CUDA kernel wrappers
+    as ``kernel.*`` for the JAX ``pallas.*``."""
     import automerge_tpu.tpu.pallas_kernels  # noqa: F401 - registration
     import automerge_tpu.tpu.paging  # noqa: F401
     import automerge_tpu.tpu.rga  # noqa: F401
@@ -310,8 +310,7 @@ def test_roster_registers_every_program_under_the_jax_name():
     jax = {n for n in jax_prof.get_observatory().programs()
            if n.split(".")[0] in ("engine", "paging", "sync", "rga", "pallas")}
     assert port == set(PROGRAMS)
-    assert {n.replace("kernel.", "pallas.") for n in port} == \
-        jax - {"engine.apply_ops"}
+    assert {n.replace("kernel.", "pallas.") for n in port} == jax
     obs = port_prof.get_observatory()
     for kind in ("build", "query"):
         prog = obs.program(f"kernel.bloom_{kind}")
@@ -341,23 +340,50 @@ def _port_farm(docs, capacity):
     return TorchDocFarm(docs, capacity=capacity, device="cpu")
 
 
+RECOMPILE_PROBE = """
+import json, sys
+sys.path.insert(0, "tests")
+import test_torch_prof as t
+buf = t._stream(1, 4)[0]
+out = {}
+for pkg, make in (("jax", t._jax_farm), ("port", t._port_farm)):
+    _prof, metrics, flight = t.PACKAGES[pkg]
+    with flight.enabled_flight() as rec:
+        rec.clear()
+        farm = make(2, 32)
+        with metrics.enabled_metrics():
+            farm.apply_changes([[buf], [buf]])
+        out[pkg] = [{"program": e["program"], "fn": e["fn"],
+                     "shapes": e["shapes"]}
+                    for e in t.events(rec, "engine.recompile")]
+print("EVENTS=" + json.dumps(out))
+"""
+
+
 def test_engine_recompile_event_names_shape_bucket():
     """Twin of tests/test_flight.py's: a fresh farm's first delivery under
     metrics and the flight recorder records ``engine.recompile`` with the
-    program, its function and the shape bucket, in both packages."""
-    buf = _stream(1, 4)[0]
+    program, its function and the shape bucket, in both packages. Both
+    run in a fresh interpreter: a JAX program compiled at these shapes by
+    an earlier test in this process records no event, and which ones did
+    depends on the order the files ran in."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, "-c", RECOMPILE_PROBE], cwd=root,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.split("EVENTS=")[1])
     names = {}
-    for pkg, make in (("jax", _jax_farm), ("port", _port_farm)):
-        _prof, metrics, flight = PACKAGES[pkg]
-        with flight.enabled_flight() as rec:
-            rec.clear()
-            farm = make(2, 32)
-            with metrics.enabled_metrics():
-                farm.apply_changes([[buf], [buf]])
-            got = events(rec, "engine.recompile")
-        assert got, f"{pkg}: fresh shapes dispatched without a recompile event"
-        assert got[0]["fn"] and got[0]["shapes"]
-        names[pkg] = {e["program"] for e in got}
+    for pkg in ("jax", "port"):
+        assert got[pkg], f"{pkg}: fresh shapes dispatched without a recompile event"
+        assert got[pkg][0]["fn"] and got[pkg][0]["shapes"]
+        names[pkg] = {e["program"] for e in got[pkg]}
     assert "paging.apply_ops" in names["port"]
     assert names["port"] <= names["jax"]
 
@@ -420,7 +446,7 @@ def _scenario(pkg):
     a map doc, a list/text doc in a farm of its own and its whole-doc read,
     a scoped visibility readback, a probe, a migration, a sync sweep with
     one v2 and one v1 replica, the dense
-    visibility program, both Bloom kernels and the device LEB128 scan.
+    merge and visibility programs, both Bloom kernels and the device LEB128 scan.
     Returns {program: dispatches} from the package's observatory."""
     import chip_smoke
 
@@ -445,8 +471,10 @@ def _scenario(pkg):
         probe = engine.ChangeOpsBatch(*[jnp.asarray(x) for x in pad])
 
         def dense_visible():
-            engine.batched_visible_state(engine.BatchedDocState(
-                *[jnp.asarray(x) for x in vis], jnp.zeros(1, jnp.int32)))
+            state = engine.batched_apply_ops(engine.BatchedDocState(
+                *[jnp.asarray(x) for x in vis], jnp.zeros(1, jnp.int32)),
+                probe)
+            engine.batched_visible_state(state)
 
         def run_kernels():
             words, modulo = kernels.bloom_build(xyz, counts, 2, interpret=True)
@@ -461,8 +489,10 @@ def _scenario(pkg):
         probe = engine.changes_from_numpy(*pad, device="cpu")
 
         def dense_visible():
-            t = [torch.from_numpy(x) for x in vis]
-            engine.visible_docs(*t, t[1])
+            state = engine.batched_apply_ops(engine.BatchedDocState(
+                *[torch.from_numpy(x) for x in vis],
+                torch.zeros(1, dtype=torch.int32)), probe)
+            engine.batched_visible_state(state)
 
         def run_kernels():
             x, c = torch.from_numpy(xyz.view(np.int32)), torch.from_numpy(counts)
