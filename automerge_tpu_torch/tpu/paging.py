@@ -82,11 +82,10 @@ class PageAllocator:
     __slots__ = ("page_size", "num_pages", "_free")
 
     def __init__(self, page_size: int = 64, initial_pages: int = 64):
-        if page_size <= 0 or page_size & (page_size - 1):
-            raise ValueError(
-                "page_size must be a power of two (working widths are "
-                "pow2-bucketed and page-aligned)"
-            )
+        assert page_size > 0 and (page_size & (page_size - 1)) == 0, (
+            "page_size must be a power of two (working widths are pow2-"
+            "bucketed and page-aligned)"
+        )
         self.page_size = page_size
         self.num_pages = max(2, initial_pages)
         self._free = list(range(self.num_pages - 1, 0, -1))
@@ -118,8 +117,7 @@ class PageAllocator:
         return True
 
     def alloc(self, n: int) -> list:
-        if len(self._free) < n:
-            raise RuntimeError("PageAllocator.alloc without ensure")
+        assert len(self._free) >= n, "alloc without ensure"
         taken = self._free[len(self._free) - n:]
         del self._free[len(self._free) - n:]
         return taken[::-1]

@@ -14,7 +14,10 @@ are uint32 bit patterns carried in int32 tensors (bloom_kernels.py).
 """
 from __future__ import annotations
 
+from math import ceil
+
 import numpy as np
+import torch
 
 from ..codecs import Encoder, hex_to_bytes
 from ..obs.metrics import get_metrics
@@ -23,8 +26,8 @@ from ..sync import BITS_PER_ENTRY, NUM_PROBES
 from .bloom_kernels import WORD_BITS, bloom_build, bloom_query, filter_modulo
 
 __all__ = [
-    "WORD_BITS", "build_filters", "filter_modulo", "filters_to_bytes",
-    "hash_to_xyz", "pack_hashes", "query_filters",
+    "WORD_BITS", "batched_have_filters", "build_filters", "filter_modulo",
+    "filters_to_bytes", "hash_to_xyz", "pack_hashes", "query_filters",
 ]
 
 _M_FILTERS_BUILT = get_metrics().counter(
@@ -99,6 +102,34 @@ def filters_to_bytes(words, modulo, counts):
         _M_FILTERS_BUILT.inc(sum(1 for blob in out if blob))
         _M_FILTER_BYTES.inc(sum(len(blob) for blob in out))
     return out
+
+
+def batched_have_filters(backends, last_syncs, device="cuda"):
+    """Builds the `have` Bloom filters for a batch of
+    single-document backends in one launch of the build kernel (the batched
+    analogue of makeBloomFilter, sync.js:234). Returns one
+    ``{"lastSync", "bloom"}`` dict per backend. Runs on the card unless
+    ``device="cpu"``, and raises when CUDA is absent."""
+    from .. import backend as Backend
+    from ..columnar import decode_change_meta_cached
+    from .engine import _require_device
+
+    device = _require_device(device, "batched_have_filters")
+    hash_lists = []
+    for backend, last_sync in zip(backends, last_syncs):
+        changes = Backend.get_changes(backend, list(last_sync))
+        hash_lists.append([decode_change_meta_cached(c)["hash"] for c in changes])
+    xyz, counts = pack_hashes(hash_lists)
+    num_words = int(ceil(xyz.shape[1] * BITS_PER_ENTRY / WORD_BITS)) or 1
+    words, modulo = build_filters(
+        torch.from_numpy(xyz.view(np.int32)).to(device),
+        torch.from_numpy(counts).to(device), num_words,
+    )
+    blooms = filters_to_bytes(words, modulo, counts)
+    return [
+        {"lastSync": list(last_sync), "bloom": bloom}
+        for last_sync, bloom in zip(last_syncs, blooms)
+    ]
 
 
 def _host(a):

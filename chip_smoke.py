@@ -34,9 +34,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    30 % chaos and a store attached, phase 17's API clients at 8
    documents, a 16-doc ``MeshFarm`` of 4 shards (inline, then over
    process workers on the pickle transport; doc 0 migrated mid-run), and
-   phase 20's dense merge at 16 docs, once on the card and once on the
-   CPU: every sync message, patch, session frame, saved session, load
-   report, store file, ``save()`` and dense column must be
+   phase 20's dense merge at 16 docs, and phase 21's runs at 16 docs
+   (the fault run at 25 %, the gate in both modes, the have filters and
+   the sweep with malformed peers), once on the card and once on the
+   CPU: every sync message, patch, outcome, session frame, saved session,
+   load report, store file, ``save()``, filter and dense column must be
    byte-identical, and the two meshes' patches too;
 5. hold the LEB128 segmented-sum kernel against its plain version on the
    card, bit-exact, at edge inputs (``segsum_edge_inputs``), each of which
@@ -167,10 +169,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    must decode to the same documents on the card as on the CPU, and
    ``python -m automerge_tpu_torch.analysis`` must exit 0. No kernel runs
    on this path: the dense merge is plain torch, as the JAX one is XLA.
+21. the per-document fault domains: (a) ``bench.py --faults``'s
+   degradation curve at 4,096 docs, one actor's stream of 8 rounds x one
+   64-op change delivered to every doc with ``quarantine_threshold=None``
+   and ``isolation="doc"``, at 0, 10 and 25 % poisoned docs (spread by
+   stride, each poisoned delivery through a ``BYTE_CORPUS`` corrupter in
+   turn): healthy-doc ops/s, ``vs_clean``, quarantined deliveries and
+   their causes, the phase table; every healthy doc must read as the
+   clean run's and every poisoned doc as a doc that received nothing (in
+   heads, log and the full-state readback; the first 512 docs in the
+   whole-doc patch too), and the allocator must hold exactly the pages
+   the page tables name; (b) at bench.py's default 512 docs, the 10 %
+   deliveries with the default threshold (3): the poisoned docs are shed
+   from their fourth delivery, then ``release_quarantine()`` and one
+   clean delivery bring every doc to the clean run's state; (c)
+   ``isolation="batch"`` on (b)'s farm: one doc over the packing range
+   rejects the whole call, and ``_read_visibility``, heads and logs read
+   the same before and after; (d) phase 3's traffic at 64
+   docs with each replica's changes in swapped pairs (every other
+   delivery defers in the causal gate) through ``gate_mode="columnar"``
+   and ``"oracle"`` on the card and columnar on the CPU, every outcome
+   and patch identical; (e) ``batched_have_filters`` over 64 backends,
+   each filter equal to the sequential ``BloomFilter``'s and to the CPU's,
+   then a 16-channel ``SyncFarm`` sweep in which channels 5 and 12 send a
+   malformed message and are dropped: the other 14 converge and
+   ``sync.messages.rejected`` counts 2. Both Bloom kernels must have
+   launched in (e) and are held bit-exact at their largest launches there.
 
-Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19) fails if the degraded walk served
-a document (``farm.fallback.calls`` moved, or a farm has ``degraded``
-docs): only phase 14's injected fault may take it.
+Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19, 21) fails if the
+degraded walk served a document (``farm.fallback.calls`` moved, or a
+farm has ``degraded`` docs): only phase 14's injected fault may take it.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after. The line before the last is the kernel table (JSON); the
@@ -181,6 +209,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -714,13 +743,17 @@ def counting_fallbacks():
             c.enabled = on
 
 
+def counts(names):
+    """{name: value} of the named counters of this package's registry."""
+    from automerge_tpu_torch.obs.metrics import get_metrics
+
+    return {name: get_metrics().counter(name).value for name in names}
+
+
 def fallback_counts():
     """The degraded walk's counters ({name: value}); they move only inside
     `counting_fallbacks`."""
-    from automerge_tpu_torch.obs.metrics import get_metrics
-
-    return {name: get_metrics().counter(name).value
-            for name in FALLBACK_COUNTERS}
+    return counts(FALLBACK_COUNTERS)
 
 
 def run_device_fault(device, docs, list_docs, seed):
@@ -3460,6 +3493,596 @@ def run_dense_phase(args, card, device):
         f"ops/s (a) {rates['a']:.1f}, (b) {rates['b']:.1f}")
 
 
+# ---------------------------------------------------------------------- #
+# phase 21: the per-document fault domains and the causal gate on the card
+
+#: (a) bench.py --faults's shape at its defaults (BENCH_ROUNDS, BENCH_OPS):
+#: one actor's stream of 8 rounds x one 64-op change, every doc the same
+FAULT_ROUNDS, FAULT_OPS = 8, 64
+FAULT_PCTS = (0, 10, 25)
+#: (a)'s docs: thousands of small documents per process
+FAULT_DOCS = 4096
+#: bench.py --faults's default (BENCH_FAULT_DOCS): (b) and (c) run at this
+#: size, and (a)'s whole-doc ``get_patch`` check reads this many docs
+FAULT_PATCH_DOCS = 512
+#: (d) each replica's changes of phase 3's traffic arrive in swapped pairs,
+#: so every other delivery defers in the causal gate
+GATE_DOCS = 64
+GATE_ORDER = (1, 0, 3, 2, 5, 4, 7, 6)
+#: (e) the SyncFarm sweep's channels and the two that send a malformed
+#: message (a peer that does is dropped, as a server closes its channel)
+SYNC_CHANNELS, SYNC_BAD = 16, (5, 12)
+QUARANTINE_COUNTERS = ("farm.quarantine.entered", "farm.quarantine.shed",
+                       "farm.quarantine.released")
+REJECTED = ("sync.messages.rejected",)
+
+
+def fault_stream(rounds, ops, seed):
+    """bench.py's ``_make_change_stream`` rebuilt with the port's
+    columnar: one actor's `rounds` changes of `ops` sets on root keys in
+    [0, 64) (a set names the actor's previous op on its key as pred), each
+    change depending on the one before."""
+    from automerge_tpu_torch.columnar import decode_change_columns, encode_change
+
+    rng = random.Random(seed)
+    actor = "aaaaaaaa"
+    buffers, last, max_op, deps = [], {}, 0, []
+    for r in range(rounds):
+        start_op = max_op + 1
+        body = []
+        for ctr in range(start_op, start_op + ops):
+            key = f"k{rng.randrange(64)}"
+            body.append({"action": "set", "obj": "_root", "key": key,
+                         "datatype": "uint", "value": rng.randrange(10**6),
+                         "pred": [last[key]] if key in last else []})
+            last[key] = f"{ctr}@{actor}"
+        max_op = start_op + ops - 1
+        buf = encode_change({"actor": actor, "seq": r + 1,
+                             "startOp": start_op, "time": 0, "deps": deps,
+                             "ops": body})
+        deps = [decode_change_columns(buf)["hash"]]
+        buffers.append(buf)
+    return buffers
+
+
+def fault_deliveries(docs, pct, stream):
+    """bench.py --faults's deliveries: round r gives every doc stream[r],
+    except that `pct` % of the docs, spread by stride, get it through a
+    ``BYTE_CORPUS`` corrupter, each poisoned doc taking the corpus in turn
+    (corrupter (d + r) mod 5). Returns (rounds, sorted poisoned docs)."""
+    from automerge_tpu_torch.testing import faults
+
+    n_poison = max(0, min(docs, round(docs * pct / 100)))
+    stride = max(docs // n_poison, 1) if n_poison else 1
+    poisoned = {i * stride for i in range(n_poison)}
+    corrupters = [c for _, c, _ in faults.BYTE_CORPUS]
+    rounds = []
+    for r, buf in enumerate(stream):
+        bad = [bytes(c(buf)) for c in corrupters]
+        rounds.append([[bad[(d + r) % len(bad)]] if d in poisoned else [buf]
+                       for d in range(docs)])
+    return rounds, sorted(poisoned)
+
+
+def record_result(rec, result):
+    """A delivery's outcomes (status, error class, kind, offending hashes,
+    fallback) and patches, for the card-vs-CPU and port-vs-JAX checks."""
+    rec.append(repr([(o.status, type(o.error).__name__, o.error_kind,
+                      tuple(o.offending_hashes), o.fallback)
+                     for o in result.outcomes]))
+    rec.extend(canon(p) for p in result)
+
+
+def quarantine_causes():
+    from automerge_tpu_torch.obs.metrics import get_metrics
+
+    return {name.rsplit(".", 1)[-1]: entry["value"]
+            for name, entry in get_metrics().as_dict().items()
+            if name.startswith("farm.quarantine.causes.")}
+
+
+def run_faults(device, docs, pct, seed, prof=None, record=None):
+    """Phase 21 (a) at one poison share: a ``TorchDocFarm`` of `docs` docs
+    (``quarantine_threshold=None``, ``isolation="doc"``) takes
+    `fault_deliveries` round by round with the metrics on, as
+    ``bench_faults`` does; the rounds are timed to a synchronize. Returns
+    (farm, stats): healthy-doc ops/s, seconds, quarantined deliveries,
+    the quarantine causes this run counted, the rounds and the poisoned
+    docs."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.obs.metrics import enabled_metrics
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+
+    prof = prof or PhaseProfile(enabled=False)
+    stream = fault_stream(FAULT_ROUNDS, FAULT_OPS, seed)
+    rounds, poisoned = fault_deliveries(docs, pct, stream)
+    farm = TorchDocFarm(docs, capacity=FAULT_ROUNDS * FAULT_OPS,
+                        quarantine_threshold=None, device=device)
+    causes0 = quarantine_causes()
+    quarantined = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    with counting_fallbacks(), enabled_metrics(), use_profile(prof):
+        for delivery in rounds:
+            result = farm.apply_changes(delivery)
+            quarantined += len(result.quarantined)
+            if record is not None:
+                record_result(record, result)
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    causes = {k: v - causes0.get(k, 0) for k, v in quarantine_causes().items()
+              if v != causes0.get(k, 0)}
+    healthy = docs - len(poisoned)
+    return farm, {
+        "pct": pct, "ops_per_s": healthy * FAULT_ROUNDS * FAULT_OPS / elapsed,
+        "s": elapsed, "healthy": healthy, "poisoned": poisoned,
+        "quarantined_deliveries": quarantined, "causes": causes,
+        "rounds": rounds, "stream": stream,
+    }
+
+
+def check_pages(farm, clean, poisoned, what):
+    """The allocator holds exactly the pages the page tables name (each
+    once, never the PAD page: no delta page leaked), a healthy doc the
+    clean farm's page count and rows, a poisoned doc none. Returns the
+    allocated pages."""
+    eng, ceng = farm.engine, clean.engine
+    owned = [p for table in eng.page_table for p in table]
+    if len(owned) != len(set(owned)) or 0 in owned or \
+            len(owned) != eng.pages.allocated:
+        raise RuntimeError(f"{what}: the allocator holds {eng.pages.allocated}"
+                           f" pages, the page tables name {len(owned)}")
+    bad = set(poisoned)
+    for d in range(farm.num_docs):
+        want = (0, 0) if d in bad else (len(ceng.page_table[d]),
+                                        int(ceng.lengths[d]))
+        if (len(eng.page_table[d]), int(eng.lengths[d])) != want:
+            raise RuntimeError(f"{what}: doc {d} holds "
+                               f"{len(eng.page_table[d])} pages and "
+                               f"{int(eng.lengths[d])} rows, want {want}")
+    return eng.pages.allocated
+
+
+def check_faults(farm, clean, clean_patches, poisoned, device, what):
+    """Every healthy doc reads as the clean farm's doc of the same index,
+    every poisoned doc as a doc that received nothing: for every doc its
+    heads, its committed log and its rows of the full-state readback
+    (``_read_visibility``), for the first ``len(clean_patches)`` docs also
+    the whole-doc ``get_patch``; and the pages match (`check_pages`)."""
+    from automerge_tpu_torch import TorchDocFarm
+
+    empty = canon(TorchDocFarm(1, capacity=8, device=device).get_patch(0))
+    n = farm.num_docs
+    bad = set(poisoned)
+    healthy = np.array([d not in bad for d in range(n)])
+    got, want = farm._read_visibility(), clean._read_visibility()
+    for name, g, w in zip(("keys", "ops", "visible", "totals", "actions"),
+                          got, want):
+        if g.shape[1] != w.shape[1] or \
+                not np.array_equal(g[healthy], w[:n][healthy]):
+            raise RuntimeError(f"{what}: the healthy docs' readback "
+                               f"({name}) differs from the clean run's")
+    if not (got[0][~healthy] == np.iinfo(np.int32).max).all():
+        raise RuntimeError(f"{what}: a poisoned doc holds rows")
+    for d in range(n):
+        patch = canon(farm.get_patch(d)) if d < len(clean_patches) else None
+        if d in bad:
+            if farm.get_heads(d) or farm.get_all_changes(d) or \
+                    patch not in (None, empty):
+                raise RuntimeError(f"{what}: poisoned doc {d} holds state")
+        elif farm.get_heads(d) != clean.get_heads(d) or \
+                len(farm.get_all_changes(d)) != \
+                len(clean.get_all_changes(d)) or \
+                (patch is not None and patch != clean_patches[d]):
+            raise RuntimeError(f"{what}: healthy doc {d} differs from the "
+                               "clean run's")
+    return check_pages(farm, clean, poisoned, what)
+
+
+def run_shedding(device, docs, seed, clean, clean_patches, record=None):
+    """Phase 21 (b): (a)'s 10 % deliveries into a farm with the default
+    quarantine threshold (3): each poisoned doc is quarantined after its
+    third failed delivery and its later deliveries are shed; then
+    ``release_quarantine()`` and one clean delivery (the whole stream to
+    each released doc, nothing to the others) must bring every doc to the
+    clean farm's state. Returns stats."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.errors import QuarantinedError
+    from automerge_tpu_torch.obs.metrics import enabled_metrics
+
+    stream = fault_stream(FAULT_ROUNDS, FAULT_OPS, seed)
+    rounds, poisoned = fault_deliveries(docs, 10, stream)
+    farm = TorchDocFarm(docs, capacity=FAULT_ROUNDS * FAULT_OPS,
+                        device=device)
+    threshold = farm.quarantine_threshold
+    c0 = counts(QUARANTINE_COUNTERS)
+    t0 = time.perf_counter()
+    with counting_fallbacks(), enabled_metrics():
+        for r, delivery in enumerate(rounds):
+            result = farm.apply_changes(delivery)
+            if record is not None:
+                record_result(record, result)
+            if sorted(result.quarantined) != poisoned:
+                raise RuntimeError(f"(b) round {r}: quarantined "
+                                   f"{sorted(result.quarantined)}")
+            shed = [d for d in poisoned if isinstance(
+                result.outcomes[d].error, QuarantinedError)]
+            if shed != (poisoned if r >= threshold else []):
+                raise RuntimeError(f"(b) round {r}: shed {len(shed)} docs")
+        if sorted(farm.quarantine) != poisoned:
+            raise RuntimeError("(b) the poisoned docs were not quarantined")
+        released = sorted(farm.release_quarantine())
+        catch_up = [list(stream) if d in set(poisoned) else []
+                    for d in range(docs)]
+        result = farm.apply_changes(catch_up)
+        if record is not None:
+            record_result(record, result)
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    moved = {k: v - c0[k] for k, v in counts(QUARANTINE_COUNTERS).items()}
+    n = len(poisoned)
+    want = {"farm.quarantine.entered": n,
+            "farm.quarantine.shed": n * (FAULT_ROUNDS - threshold),
+            "farm.quarantine.released": n}
+    if released != poisoned or moved != want or result.quarantined:
+        raise RuntimeError(f"(b) released {len(released)} docs, counters "
+                           f"{moved}, want {want}")
+    check_faults(farm, clean, clean_patches, [], device, "(b)")
+    return {"s": elapsed, "threshold": threshold, "counters": moved,
+            "rounds": rounds, "catch_up": catch_up, "farm": farm}
+
+
+def batch_delivery(docs, stream, seed):
+    """Phase 21 (c)'s delivery: the stream's next change for every doc,
+    except one doc (drawn from `seed`) whose change overflows the
+    merge-key packing range. Returns (delivery, that doc)."""
+    from automerge_tpu_torch.columnar import decode_change_columns
+    from automerge_tpu_torch.testing import faults
+    from automerge_tpu_torch.tpu.rga import MAX_COUNTER
+
+    deps = [decode_change_columns(stream[-1])["hash"]]
+    nxt = faults.make_change("aaaaaaaa", len(stream) + 1,
+                             len(stream) * FAULT_OPS + 1, deps,
+                             [faults.set_op("k0", 1)])
+    k = int(np.random.default_rng(seed).integers(docs))
+    over = faults.counter_overflow("aaaaaaaa", len(stream) + 1, MAX_COUNTER,
+                                   deps)
+    return [[over] if d == k else [nxt] for d in range(docs)], k
+
+
+def run_batch_isolation(farm, stream, seed):
+    """Phase 21 (c): under ``isolation="batch"`` one doc over the packing
+    limit rejects the whole call before anything commits: the call raises
+    ``PackingLimitError``, and the full-readback oracle
+    (``_read_visibility``), every doc's heads and committed log read the
+    same before and after. Returns (that doc, the error)."""
+    from automerge_tpu_torch.errors import PackingLimitError
+
+    delivery, k = batch_delivery(farm.num_docs, stream, seed)
+    before = farm._read_visibility()
+    heads = [farm.get_heads(d) for d in range(farm.num_docs)]
+    logs = [len(farm.get_all_changes(d)) for d in range(farm.num_docs)]
+    try:
+        farm.apply_changes(delivery, isolation="batch")
+    except PackingLimitError as exc:
+        err = exc
+    else:
+        raise RuntimeError("(c) the batch-isolated call committed")
+    after = farm._read_visibility()
+    if any(not np.array_equal(a, b) for a, b in zip(before, after)):
+        raise RuntimeError("(c) the readback moved under a rejected call")
+    if [farm.get_heads(d) for d in range(farm.num_docs)] != heads or \
+            [len(farm.get_all_changes(d))
+             for d in range(farm.num_docs)] != logs:
+        raise RuntimeError("(c) a doc committed under a rejected call")
+    return k, err
+
+
+@functools.lru_cache(maxsize=2)
+def gate_deliveries(docs, seed):
+    """Phase 21 (d)'s deliveries: phase 3's traffic (8 replicas x 8
+    changes x 16 ops per doc), one change per replica per delivery in the
+    order `GATE_ORDER`: change 1 arrives before the change 0 it depends
+    on, and so on in pairs. Built once for the phase's runs, so no caller
+    changes them."""
+    edits = make_edits(docs, MAP_REPLICAS, MAP_CHANGES, MAP_OPS, seed)
+    return [[[edits[r][c][d] for r in range(MAP_REPLICAS)]
+             for d in range(docs)] for c in GATE_ORDER]
+
+
+def run_gate(device, docs, seed, mode, record):
+    """Phase 21 (d): `gate_deliveries` into a farm of the given
+    ``gate_mode``; every patch goes to `record`. Each first delivery of a
+    pair must defer every change (one pending per replica), each second
+    must commit both. Returns (farm, seconds)."""
+    from automerge_tpu_torch import TorchDocFarm
+
+    farm = TorchDocFarm(docs, capacity=MAP_REPLICAS * MAP_CHANGES * MAP_OPS,
+                        gate_mode=mode, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for t, delivery in enumerate(gate_deliveries(docs, seed)):
+        result = farm.apply_changes(delivery)
+        record_result(record, result)
+        pending = {p["pendingChanges"] for p in result}
+        want = MAP_REPLICAS if t % 2 == 0 else 0
+        if pending != {want} or result.quarantined:
+            raise RuntimeError(f"(d) {mode} delivery {t}: pending {pending}, "
+                               f"want {want}")
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    for d in range(docs):
+        record.append(canon(farm.get_patch(d)))
+        if len(farm.get_all_changes(d)) != MAP_REPLICAS * MAP_CHANGES:
+            raise RuntimeError(f"(d) {mode}: doc {d} lacks changes")
+    return farm, elapsed
+
+
+def run_have_filters(device, docs, seed, record):
+    """Phase 21 (e), first half: ``batched_have_filters`` over `docs`
+    single-document backends, each holding replica 1's changes of phase
+    3's traffic for its doc (every odd backend's last sync at its change
+    3, every eighth's at its own heads: an empty filter). Every filter
+    must equal the sequential ``BloomFilter``'s bytes; the filters go to
+    `record`. Returns the seconds of the call."""
+    from automerge_tpu_torch import backend as Backend
+    from automerge_tpu_torch import sync as Sync
+    from automerge_tpu_torch.columnar import decode_change_meta_cached
+    from automerge_tpu_torch.tpu.sync_batch import batched_have_filters
+
+    edits = make_edits(docs, 2, MAP_CHANGES, MAP_OPS, seed + 21)[1]
+    backends = [Backend.apply_changes(
+        Backend.init(), [edits[c][d] for c in range(MAP_CHANGES)])[0]
+        for d in range(docs)]
+    last_syncs = [Backend.get_heads(backends[d]) if d % 8 == 7 else
+                  [decode_change_meta_cached(edits[3][d])["hash"]]
+                  if d % 2 else [] for d in range(docs)]
+    _sync(device)
+    t0 = time.perf_counter()
+    haves = batched_have_filters(backends, last_syncs, device=device)
+    elapsed = time.perf_counter() - t0
+    for d, have in enumerate(haves):
+        hashes = [decode_change_meta_cached(c)["hash"]
+                  for c in Backend.get_changes(backends[d], last_syncs[d])]
+        if have != {"lastSync": last_syncs[d],
+                    "bloom": Sync.BloomFilter(hashes).bytes}:
+            raise RuntimeError(f"(e) backend {d}'s have filter differs from "
+                               "the sequential BloomFilter")
+        record.append(have["bloom"])
+    if docs >= 8 and not any(h["bloom"] == b"" for h in haves):
+        raise RuntimeError("(e) no empty have filter")
+    return elapsed
+
+
+def run_bad_peers(device, channels, seed, record):
+    """Phase 21 (e), second half: `channels` single-document backends
+    holding replica 1's changes of phase 3's traffic sync with a server
+    farm holding replica 0's, through a ``SyncFarm``, until no message
+    moves. The channels in `SYNC_BAD` send a truncated first message and
+    are dropped. Every other channel must converge (equal heads and
+    whole-doc patches); the server must count one ``sync.messages.rejected``
+    per bad channel, keep those channels' states and hold none of their
+    changes. Every message and patch goes to `record`. Returns stats."""
+    from automerge_tpu_torch import SyncFarm, TorchDocFarm
+    from automerge_tpu_torch import backend as Backend
+    from automerge_tpu_torch import sync as Sync
+    from automerge_tpu_torch.obs.metrics import enabled_metrics
+    from automerge_tpu_torch.testing import faults
+
+    edits = make_edits(channels, 2, MAP_CHANGES, MAP_OPS, seed + 21)
+    server = TorchDocFarm(channels, capacity=2 * MAP_CHANGES * MAP_OPS,
+                          device=device)
+    server.apply_changes([[edits[0][c][d] for c in range(MAP_CHANGES)]
+                          for d in range(channels)])
+    clients = [Backend.apply_changes(
+        Backend.init(), [edits[1][c][d] for c in range(MAP_CHANGES)])[0]
+        for d in range(channels)]
+    sf = SyncFarm(server)
+    s_states = [SyncFarm.init_state() for _ in range(channels)]
+    c_states = [Sync.init_sync_state() for _ in range(channels)]
+    bad = {c for c in SYNC_BAD if c < channels}
+    live = list(range(channels))
+    rejected0 = counts(REJECTED)[REJECTED[0]]
+    sweeps = []
+    t0 = time.perf_counter()
+    with counting_fallbacks(), enabled_metrics():
+        for _ in range(64):
+            batch = []
+            for d in live:
+                c_states[d], msg = Sync.generate_sync_message(clients[d],
+                                                              c_states[d])
+                if msg is not None:
+                    batch.append((d, faults.truncated(msg, keep=3)
+                                  if d in bad else msg))
+            got = sf.receive_messages(
+                [(d, s_states[d], msg) for d, msg in batch]) if batch else []
+            for (d, msg), (state, patch) in zip(batch, got):
+                if d in bad and (state != s_states[d] or patch is not None):
+                    raise RuntimeError(f"(e) bad channel {d} moved state")
+                s_states[d] = state
+                record.append(msg)
+                record.append(canon(patch))
+            live = [d for d in live if d not in bad]
+            out = sf.generate_messages([(d, s_states[d]) for d in live])
+            moved = len(batch)
+            for d, (state, msg) in zip(live, out):
+                s_states[d] = state
+                record.append(msg)
+                if msg is None:
+                    continue
+                moved += 1
+                clients[d], c_states[d], patch = Sync.receive_sync_message(
+                    clients[d], c_states[d], msg)
+                record.append(canon(patch))
+            sweeps.append(moved)
+            if moved == 0:
+                break
+        else:
+            raise RuntimeError("(e) the sync did not quiesce in 64 sweeps")
+    _sync(device)
+    elapsed = time.perf_counter() - t0
+    rejected = counts(REJECTED)[REJECTED[0]] - rejected0
+    if rejected != len(bad):
+        raise RuntimeError(f"(e) {rejected} messages rejected, want "
+                           f"{len(bad)}")
+    for d in range(channels):
+        if d in bad:
+            if len(server.get_all_changes(d)) != MAP_CHANGES:
+                raise RuntimeError(f"(e) bad channel {d}'s changes landed")
+            continue
+        patch = canon(server.get_patch(d))
+        if sorted(Backend.get_heads(clients[d])) != sorted(
+                server.get_heads(d)) or canon(
+                    Backend.get_patch(clients[d])) != patch:
+            raise RuntimeError(f"(e) channel {d} did not converge")
+        record.append(patch)
+    return {"s": elapsed, "sweeps": sweeps, "rejected": rejected,
+            "converged": channels - len(bad), "server": server}
+
+
+def run_faults_phase(args, table, card, device, docs=FAULT_DOCS):
+    """Phase 21 (see the module docstring) with (a) at `docs` docs. The
+    objects earlier phases left alive are moved out of the cyclic
+    collector's reach for the phase (``gc.freeze``): its passes over them
+    would otherwise land in whichever host phase allocates when they fall
+    due, as bench.py's own process does not carry them."""
+    t0 = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    try:
+        parts = faults_phase(args, table, card, device, docs)
+    finally:
+        gc.unfreeze()
+    log(f"  whole phase {time.perf_counter() - t0:.3f} s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+
+
+def faults_phase(args, table, card, device, docs):
+    """Runs phase 21; returns the seconds of its parts."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.columnar import decode_change_cached
+    from automerge_tpu_torch.profiling import PhaseProfile
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
+
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    small = min(docs, FAULT_PATCH_DOCS)
+    bk.reset_launch_counts()
+    fallbacks = fallback_counts()
+    # the whole stream into a small farm first warms the farm path and the
+    # decode LRU for the three runs alike (bench.py warms with the first
+    # change, so its clean run meets the others' changes cold)
+    warm = TorchDocFarm(16, capacity=FAULT_ROUNDS * FAULT_OPS, device=device)
+    for buf in fault_stream(FAULT_ROUNDS, FAULT_OPS, args.seed):
+        warm.apply_changes([[buf]] * 16)
+    del warm
+    lap("warm")
+    # (a) the degradation curve
+    runs = {}
+    for pct in FAULT_PCTS:
+        prof = PhaseProfile()
+        farm, stats = run_faults(device, docs, pct, args.seed, prof=prof)
+        stats["prof"] = prof
+        if not runs:
+            clean = farm
+            clean_patches = [canon(clean.get_patch(d)) for d in range(small)]
+        t_check = time.perf_counter()
+        stats["pages"] = check_faults(farm, clean, clean_patches,
+                                      stats["poisoned"], device,
+                                      f"(a) {pct} %")
+        stats["check_s"] = time.perf_counter() - t_check
+        check_no_fallback(fallbacks, [farm], f"phase 21 (a) {pct} %")
+        runs[pct] = stats
+    del farm
+    lap("(a)")
+    log(f"phase 21 fault domains: (a) bench.py --faults's shape, {docs} docs "
+        f"x {FAULT_ROUNDS} rounds x one {FAULT_OPS}-op change, "
+        f"isolation=\"doc\", no shedding, card {card}")
+    for pct, st in runs.items():
+        totals = st["prof"].totals_by_path()
+        farm_s = sum(t for path, (t, _) in totals.items() if "/" not in path)
+        log(f"  {pct} % poisoned: {st['healthy']} healthy docs at "
+            f"{st['ops_per_s']:.1f} ops/s (vs_clean "
+            f"{st['ops_per_s'] / runs[0]['ops_per_s']:.4f}), "
+            f"{st['s']:.3f} s; {st['quarantined_deliveries']} quarantined "
+            f"deliveries, causes {st['causes']}; {st['pages']} pages held "
+            f"(no leak); every healthy doc equals the clean run and every "
+            f"poisoned doc is empty in heads, log and readback, the first "
+            f"{small} in get_patch too ({st['check_s']:.2f} s)")
+        log("    shares " + json.dumps(
+            {k: round(totals.get(k, (0.0, 0))[0] / farm_s, 4)
+             for k in ("decode", "gate_verdicts", "patch_assembly")}))
+    log("  phase table (the 10 % run, host clock):")
+    for line in runs[10]["prof"].table().splitlines():
+        log("    " + line)
+    # (b) shedding and release, at bench.py's default size
+    shed = run_shedding(device, small, args.seed, clean, clean_patches)
+    log(f"  (b) {small} docs, threshold {shed['threshold']}: the 10 % "
+        f"deliveries' poisoned docs shed from delivery "
+        f"{shed['threshold'] + 1}, released, then one clean delivery: every "
+        f"doc equals the clean run; counters {shed['counters']}; "
+        f"{shed['s']:.3f} s")
+    del clean
+    lap("(b)")
+    # (c) isolation="batch", on (b)'s farm, whose docs all hold the stream
+    k, err = run_batch_isolation(shed["farm"], runs[0]["stream"], args.seed)
+    log(f"  (c) isolation=\"batch\" at {small} docs: doc {k} over the "
+        f"packing range rejects the call ({type(err).__name__}: {err}); "
+        f"_read_visibility, heads and logs unchanged")
+    del shed
+    lap("(c)")
+    # (d) the gate, columnar and oracle on the card, columnar on the CPU;
+    # the deliveries' decodes are cached first, for every run alike
+    for delivery in gate_deliveries(GATE_DOCS, args.seed):
+        for bufs in delivery:
+            for buf in bufs:
+                decode_change_cached(buf)
+    records, times = {}, {}
+    for dev, mode in ((device, "columnar"), (device, "oracle"),
+                      ("cpu", "columnar")):
+        records[dev, mode] = []
+        _, times[dev, mode] = run_gate(dev, GATE_DOCS, args.seed, mode,
+                                       records[dev, mode])
+    first = records[device, "columnar"]
+    if any(r != first for r in records.values()):
+        raise RuntimeError("(d) the gate's patches differ across modes or "
+                           "devices")
+    log(f"  (d) phase 3's traffic at {GATE_DOCS} docs in swapped pairs "
+        f"(every other delivery defers all 8 replicas' changes): columnar "
+        f"{times[device, 'columnar']:.3f} s, oracle "
+        f"{times[device, 'oracle']:.3f} s on the card, columnar "
+        f"{times['cpu', 'columnar']:.3f} s on the CPU; {len(first)} "
+        f"outcome lists and patches identical")
+    lap("(d)")
+    # (e) the batched have filters (card vs CPU) and a SyncFarm sweep with
+    # malformed peers
+    with recorded_bloom_launches() as (rec_build, rec_query):
+        on_card, on_cpu = [], []
+        have_s = run_have_filters(device, GATE_DOCS, args.seed, on_card)
+        peers = run_bad_peers(device, SYNC_CHANNELS, args.seed, [])
+    launches = dict(bk.LAUNCHES)
+    run_have_filters("cpu", GATE_DOCS, args.seed, on_cpu)
+    if on_card != on_cpu:
+        raise RuntimeError("(e) the card's have filters differ from the CPU's")
+    check_no_fallback(fallbacks, [peers["server"]], "phase 21")
+    log(f"  (e) batched_have_filters over {GATE_DOCS} backends: "
+        f"{have_s * 1e3:.2f} ms, every filter equal to the sequential "
+        f"BloomFilter's and to the CPU's; a {SYNC_CHANNELS}-channel SyncFarm "
+        f"sweep with channels {list(SYNC_BAD)} malformed: "
+        f"{peers['converged']} converged, {peers['rejected']} rejected, "
+        f"messages per sweep {peers['sweeps']} ({peers['s']:.3f} s); kernel "
+        f"launches {launches}")
+    check_launched(table, launches, rec_build, rec_query, "faults",
+                   "phase 21")
+    lap("(e)")
+    return parts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=512)
@@ -3501,7 +4124,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-20 on the card (see the module docstring); raises on the
+    """Phases 1-21 on the card (see the module docstring); raises on the
     first check that fails."""
     import shutil
     import tempfile
@@ -3653,6 +4276,14 @@ def run_phases(args) -> int:
             dev, dense_batches(16, DENSE_ROUNDS, DENSE_OPS, args.seed),
             DENSE_ROUNDS * DENSE_OPS, warm=False)
         rec.extend(c.tobytes() for c in dense_columns(state, vis, 16))
+        fallbacks = fallback_counts()
+        f4, _ = run_faults(dev, 16, 25, args.seed, record=rec)
+        for mode in ("columnar", "oracle"):
+            run_gate(dev, 16, args.seed, mode, rec)
+        run_have_filters(dev, 16, args.seed, rec)
+        peers = run_bad_peers(dev, 16, args.seed, rec)
+        check_no_fallback(fallbacks, [f4, peers["server"]],
+                          f"phase 4 ({dev})")
     if on_card != on_cpu:
         first = next(i for i, (a, b) in enumerate(zip(on_card, on_cpu))
                      if a != b) if len(on_card) == len(on_cpu) else "length"
@@ -3662,7 +4293,9 @@ def run_phases(args) -> int:
         f"served clients at 30 % chaos with a store attached, 8 docs x "
         f"{API_CLIENTS} API clients x {API_ROUNDS} rounds against a farm, "
         f"a {MESH_SMALL[0]}-doc mesh of {MESH_SMALL[1]} shards inline and "
-        f"over process workers, 16 docs of phase 20's dense merge): "
+        f"over process workers, 16 docs of phase 20's dense merge, 16 "
+        f"docs of phase 21's fault run at 25 % poison, gate in both modes, "
+        f"have filters and sync sweep with malformed peers): "
         f"{len(on_card)} messages, patches, frames, "
         f"saved sessions, reports and store files identical "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -4062,6 +4695,10 @@ def run_phases(args) -> int:
     # 20. the engine-level API: bench.py's dense whole-state merge, then
     # BASELINE's 100k-doc batch, a BatchTranscoder round, the port's amlint
     run_dense_phase(args, card, device)
+
+    # 21. the per-document fault domains, the causal gate, the batched have
+    # filters and a sync sweep with malformed peers
+    run_faults_phase(args, table, card, device)
 
     log(card)
     log(json.dumps(table))
