@@ -1339,7 +1339,7 @@ class TorchDocFarm:
           before anything commits).
 
         Phases (recorded on the ambient PhaseProfile): decode ->
-        prevalidate -> walk (docs with list/text objects) -> gate_verdicts ->
+        walk (docs with list/text objects) -> gate_verdicts ->
         transcode_columns -> gate+transcode (scalar oracle) -> pack ->
         device_dispatch -> fallback_walk (only after a failed dispatch) ->
         visibility (host mirror merge + scoped device readback of stale
@@ -1462,18 +1462,17 @@ class TorchDocFarm:
         # Docs receiving no changes this call skip prevalidation entirely:
         # their queue was validated at its original delivery and a queued
         # change can only become ready when a NEW change for the same doc
-        # commits.
-        with prof.phase("prevalidate"):
-            for d, decoded in enumerate(per_doc_decoded):
-                if not decoded:
-                    continue
-                try:
-                    self._prevalidate_limits(d, decoded)
-                except ValueError as exc:
-                    if not doc_mode:
-                        _M_ABORTS.inc()
-                        raise
-                    quarantine(d, exc)
+        # commits. Its time falls in no phase, as in the JAX farm's table.
+        for d, decoded in enumerate(per_doc_decoded):
+            if not decoded:
+                continue
+            try:
+                self._prevalidate_limits(d, decoded)
+            except ValueError as exc:
+                if not doc_mode:
+                    _M_ABORTS.inc()
+                    raise
+                quarantine(d, exc)
 
         # list/text-targeting docs route through the reference walk, whose
         # patch is authoritative for them (byte-exact edit streams; see

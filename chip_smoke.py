@@ -195,8 +195,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    malformed message and are dropped: the other 14 converge and
    ``sync.messages.rejected`` counts 2. Both Bloom kernels must have
    launched in (e) and are held bit-exact at their largest launches there.
+22. the farm held to the reference on the JAX suite's own cases
+   (``run_farm_phase``): (a) the nine ``TestFarmBasics`` cases of
+   tests/test_farm.py on the card, every farm call's patch equal to the
+   port's ``OpSet`` and every record to a CPU run's; (b) the suite's
+   differential traffic (``FarmWorkload``, a copy of its ``Workload``:
+   seed 4, 3 actors, counters, nesting and deletes, ``delay_prob`` 0.5) at
+   phase 3's 512 docs x 12 rounds + 3 drain rounds, every round's patch of
+   every doc equal to ``OpSet``'s, then every doc's whole patch, heads and
+   missing deps; (c) ``BASELINE.json`` ``configs[2]`` ("Counter CRDT: 64
+   actors, 100k concurrent increments") on 64 docs: one change makes the
+   root counter, then 64 actors x 25 changes x 64 ``inc`` ops of 1, round
+   r carrying every actor's r-th change in a seeded shuffle; after round r
+   every doc's counter reads 4,096 r, docs 0-1's patches equal a CPU
+   farm's, no page is leaked, and a cut of 64 actors x 25 changes x 1
+   increment on 2 docs is held to ``OpSet`` round by round (its cost grows
+   with changes x rows); wall time, increments/s, the phase table, peak
+   device memory, pages and ``engine.slab.grow`` events are logged; (d)
+   tests/test_sync_v2.py's ``TestFarmBatchedFingerprints`` on the card: at
+   most one ``sync.fingerprint_ranges`` dispatch per ``generate_messages``
+   call (the port's observatory), converged, one dispatch for a sweep with
+   every channel probing and none for an empty query list, card equal to
+   CPU; (e) tests/test_obs.py's two-call farm case on the card:
+   ``engine.device.dispatches`` 6, cache hits plus recompiles equal to it,
+   40 rows transcoded, no padding. No kernel runs on this path.
 
-Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19, 21) fails if the
+Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19, 21, 22) fails if the
 degraded walk served a document (``farm.fallback.calls`` moved, or a
 farm has ``degraded`` docs): only phase 14's injected fault may take it.
 
@@ -4083,6 +4107,817 @@ def faults_phase(args, table, card, device, docs):
     return parts
 
 
+# ---------------------------------------------------------------------- #
+# phase 22: the farm held to OpSet on the JAX suite's own traffic, the
+# counter configuration of BASELINE.json, sync v2 and the instruments
+
+# (b) tests/test_farm.py's differential traffic: docs, rounds, drain
+# rounds, seed (test_heavy_concurrency_and_delay's) and the farm capacity
+DIFF_DOCS, DIFF_ROUNDS, DIFF_DRAIN, DIFF_SEED = 512, 12, 3, 4
+DIFF_DELAY, DIFF_CAPACITY = 0.5, 256
+# the (round, doc) pairs of that traffic at which the farm's incremental
+# patch differs from OpSet's in both packages alike: edits inside an
+# object that holds a root key in conflict with plain values, where OpSet
+# lists the plain values without the object and the farm lists nothing at
+# that key (ROADMAP queue C). The whole-doc patches agree at the end
+DIFF_KNOWN = frozenset(
+    [(r, 366) for r in (3, 4, 6, 7, 8, 9, 10, 11, 12)]
+    + [(r, 449) for r in (4, 5, 6, 10, 11)])
+# (c) BASELINE.json configs[2] per doc: actors, changes per actor, inc ops
+# per change; the docs on the card; the OpSet cut (inc ops per change,
+# docs) and the docs held to a CPU farm
+COUNTER_ACTORS, COUNTER_CHANGES, COUNTER_INCS = 64, 25, 64
+COUNTER_DOCS = 64
+COUNTER_CUT_INCS, COUNTER_CUT_DOCS, COUNTER_CPU_DOCS = 1, 2, 2
+COUNTER_ROW_BYTES = 33  # key i32, op i64, action i32, value i64, pred i64, bool
+# (d) test_sync_v2.py's TestFarmBatchedFingerprints
+V2_FARM_DOCS, V2_FARM_SWEEPS = 4, 12
+
+
+def port_pkg(device):
+    """The port's farm, ``OpSet`` and columnar under the names the phase's
+    scenarios use (``tests/test_torch_farm_smoke.py`` runs them over the
+    JAX package too)."""
+    from automerge_tpu_torch import TorchDocFarm, columnar
+    from automerge_tpu_torch.opset import OpSet
+
+    return argparse.Namespace(
+        farm=functools.partial(TorchDocFarm, device=device), OpSet=OpSet,
+        columnar=columnar)
+
+
+def farm_change(P, actor, seq, start_op, deps, ops):
+    """tests/test_farm.py's ``make_change``: (buffer, hash)."""
+    buf = P.columnar.encode_change(
+        {"actor": actor, "seq": seq, "startOp": start_op, "time": 0,
+         "deps": sorted(deps), "ops": ops})
+    return buf, P.columnar.decode_change_columns(buf)["hash"]
+
+
+def uint_set(key, value, pred=(), obj="_root"):
+    return {"action": "set", "obj": obj, "key": key, "datatype": "uint",
+            "value": value, "pred": list(pred)}
+
+
+def counter_set(key, value):
+    return {"action": "set", "obj": "_root", "key": key,
+            "datatype": "counter", "value": value, "pred": []}
+
+
+def held(rec, got, want, what):
+    """The farm's patch equals OpSet's; appends it to `rec`."""
+    if got != want:
+        raise RuntimeError(f"{what}: the farm's patch {got} differs from "
+                           f"OpSet's {want}")
+    rec.append(canon(got))
+
+
+def expect(ok, what):
+    if not ok:
+        raise RuntimeError(what)
+
+
+# (a) the nine cases of tests/test_farm.py's TestFarmBasics, each farm
+# call held to the same call on OpSet
+
+
+def basics_single_set_patch(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf, _ = farm_change(P, "aaaaaaaa", 1, 1, [], [uint_set("x", 7)])
+    held(rec, farm.apply_changes([[buf]])[0], opset.apply_changes([buf]),
+         "single set")
+
+
+def basics_queued_change_waits_for_deps(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf1, h1 = farm_change(P, "aaaaaaaa", 1, 1, [], [uint_set("x", 1)])
+    buf2, _ = farm_change(P, "aaaaaaaa", 2, 2, [h1],
+                          [uint_set("x", 2, ["1@aaaaaaaa"])])
+    got2 = farm.apply_changes([[buf2]])[0]
+    held(rec, got2, opset.apply_changes([buf2]), "queued change")
+    expect(got2["pendingChanges"] == 1 and farm.get_missing_deps(0) == [h1],
+           "queued change: not pending on its dependency")
+    got1 = farm.apply_changes([[buf1]])[0]
+    held(rec, got1, opset.apply_changes([buf1]), "dependency arrives")
+    expect(got1["pendingChanges"] == 0, "dependency arrives: still pending")
+
+
+def basics_duplicate_change_is_idempotent(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf, _ = farm_change(P, "aaaaaaaa", 1, 1, [], [uint_set("x", 1)])
+    farm.apply_changes([[buf]])
+    opset.apply_changes([buf])
+    held(rec, farm.apply_changes([[buf]])[0], opset.apply_changes([buf]),
+         "duplicate change")
+
+
+def basics_concurrent_conflict_map(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf_a, _ = farm_change(P, "aaaaaaaa", 1, 1, [], [uint_set("k", 1)])
+    buf_b, _ = farm_change(P, "bbbbbbbb", 1, 1, [], [uint_set("k", 2)])
+    got = farm.apply_changes([[buf_a, buf_b]])[0]
+    held(rec, got, opset.apply_changes([buf_a, buf_b]), "map conflict")
+    expect(set(got["diffs"]["props"]["k"]) == {"1@aaaaaaaa", "1@bbbbbbbb"},
+           "map conflict: both values not visible")
+
+
+def basics_multi_pred_conflict_resolution(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf_a, ha = farm_change(P, "aaaaaaaa", 1, 1, [], [uint_set("k", 1)])
+    buf_b, hb = farm_change(P, "bbbbbbbb", 1, 1, [], [uint_set("k", 2)])
+    buf_c, _ = farm_change(P, "aaaaaaaa", 2, 2, [ha, hb], [
+        uint_set("k", 3, ["1@aaaaaaaa", "1@bbbbbbbb"])])
+    held(rec, farm.apply_changes([[buf_a, buf_b]])[0],
+         opset.apply_changes([buf_a, buf_b]), "multi-pred: the conflict")
+    got = farm.apply_changes([[buf_c]])[0]
+    held(rec, got, opset.apply_changes([buf_c]), "multi-pred: resolution")
+    expect(list(got["diffs"]["props"]["k"]) == ["2@aaaaaaaa"],
+           "multi-pred: the conflict survived its resolution")
+
+
+def basics_nested_make_map_patch(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf, _ = farm_change(P, "aaaaaaaa", 1, 1, [], [
+        {"action": "makeMap", "obj": "_root", "key": "cfg", "pred": []},
+        uint_set("x", 5, obj="1@aaaaaaaa")])
+    held(rec, farm.apply_changes([[buf]])[0], opset.apply_changes([buf]),
+         "nested makeMap")
+
+
+def basics_counter_accumulation_patch(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf1, h1 = farm_change(P, "aaaaaaaa", 1, 1, [], [counter_set("c", 10)])
+    buf2, _ = farm_change(P, "aaaaaaaa", 2, 2, [h1], [
+        {"action": "inc", "obj": "_root", "key": "c", "value": 3,
+         "pred": ["1@aaaaaaaa"]}])
+    held(rec, farm.apply_changes([[buf1]])[0], opset.apply_changes([buf1]),
+         "counter: set")
+    got = farm.apply_changes([[buf2]])[0]
+    held(rec, got, opset.apply_changes([buf2]), "counter: inc")
+    expect(got["diffs"]["props"]["c"]["1@aaaaaaaa"]["value"] == 13,
+           "counter: 10 + 3 is not 13")
+
+
+def basics_multi_pred_inc_on_conflicting_counters(P, rec):
+    farm, opset = P.farm(1, capacity=16), P.OpSet()
+    buf_a, ha = farm_change(P, "aaaaaaaa", 1, 1, [], [counter_set("c", 10)])
+    buf_b, hb = farm_change(P, "bbbbbbbb", 1, 1, [], [counter_set("c", 100)])
+    buf_c, _ = farm_change(P, "cccccccc", 1, 2, [ha, hb], [
+        {"action": "inc", "obj": "_root", "key": "c", "value": 7,
+         "pred": ["1@aaaaaaaa", "1@bbbbbbbb"]}])
+    held(rec, farm.apply_changes([[buf_a, buf_b]])[0],
+         opset.apply_changes([buf_a, buf_b]), "conflicting counters")
+    held(rec, farm.apply_changes([[buf_c]])[0], opset.apply_changes([buf_c]),
+         "inc on conflicting counters")
+    held(rec, farm.get_patch(0), opset.get_patch(),
+         "conflicting counters: whole doc")
+
+
+def basics_seq_reuse_raises(P, rec):
+    farm = P.farm(1, capacity=16)
+    buf1, _ = farm_change(P, "aaaaaaaa", 1, 1, [], [uint_set("x", 1)])
+    buf1b, _ = farm_change(P, "aaaaaaaa", 1, 1, [], [uint_set("y", 2)])
+    farm.apply_changes([[buf1]])
+    try:
+        farm.apply_changes([[buf1b]], isolation="batch")
+    except ValueError as exc:
+        raised = str(exc)
+    else:
+        raised = ""
+    expect("sequence number" in raised,
+           f"seq reuse under isolation='batch' raised {raised!r}")
+    outcome = farm.apply_changes([[buf1b]]).outcomes[0]
+    expect(outcome.status == "quarantined"
+           and isinstance(outcome.error, ValueError)
+           and "sequence number" in str(outcome.error)
+           and len(farm.get_all_changes(0)) == 1,
+           f"seq reuse under isolation='doc': {outcome}")
+    rec.append(repr((raised, outcome.status, str(outcome.error))))
+
+
+FARM_BASICS = (
+    basics_single_set_patch, basics_queued_change_waits_for_deps,
+    basics_duplicate_change_is_idempotent, basics_concurrent_conflict_map,
+    basics_multi_pred_conflict_resolution, basics_nested_make_map_patch,
+    basics_counter_accumulation_patch,
+    basics_multi_pred_inc_on_conflicting_counters, basics_seq_reuse_raises,
+)
+
+
+def run_farm_basics(P):
+    """The nine cases over package namespace `P`; returns the record."""
+    rec = []
+    for case in FARM_BASICS:
+        case(P, rec)
+    return rec
+
+
+# (b) tests/test_farm.py's Workload and run_farm_differential's loop
+
+
+def _lamport(op_id):
+    ctr, actor = op_id.split("@")
+    return (int(ctr), actor)
+
+
+def visible_index(diffs, obj="_root", out=None, objects=None):
+    """tests/test_farm.py's ``visible_index``: a whole-doc patch diff as
+    {(obj, key): [(opId, diff)]} and the live object ids."""
+    if out is None:
+        out, objects = {}, {"_root": "map"}
+    for key, values in diffs.get("props", {}).items():
+        entries = sorted(values.items(), key=lambda kv: _lamport(kv[0]))
+        if entries:
+            out[(obj, key)] = entries
+        for _op_id, diff in entries:
+            if isinstance(diff, dict) and "objectId" in diff:
+                objects[diff["objectId"]] = diff["type"]
+                visible_index(diff, diff["objectId"], out, objects)
+    return out, objects
+
+
+class FarmWorkload:
+    """tests/test_farm.py's ``Workload`` over the port's columnar (the
+    same draws in the same order, so the same buffers for a seed: the
+    differential's concurrent rounds from 1-2 of 3 actors against one
+    snapshot, counters, nested maps and tables, deletes, and deliveries
+    delayed by 1-2 rounds with `delay_prob` and shuffled)."""
+
+    def __init__(self, seed, actors=("aaaaaaaa", "bbbbbbbb", "cccccccc"),
+                 with_counters=True, with_nesting=True, delay_prob=0.25):
+        self.P = port_pkg("cpu")
+        self.rng = random.Random(seed)
+        self.actors = actors
+        self.with_counters = with_counters
+        self.with_nesting = with_nesting
+        self.delay_prob = delay_prob
+        self.seqs = dict.fromkeys(actors, 0)
+        self.last_hash = dict.fromkeys(actors, None)
+        self.max_op = 0
+        self.in_flight = []
+        self.round = 0
+
+    def _ops_against(self, index, objects, n_ops):
+        rng, ops = self.rng, []
+        for _ in range(n_ops):
+            obj = rng.choice(sorted(objects))
+            key = f"k{rng.randrange(5)}"
+            entries = index.get((obj, key), [])
+            preds = [op_id for op_id, _ in entries]
+            counter_ids = [op_id for op_id, d in entries
+                           if isinstance(d, dict)
+                           and d.get("datatype") == "counter"]
+            roll = rng.random()
+            if counter_ids:
+                ops.append({"action": "inc", "obj": obj, "key": key,
+                            "value": rng.randrange(1, 10),
+                            "pred": [counter_ids[-1]]})
+            elif self.with_nesting and roll < 0.18:
+                action = "makeMap" if rng.random() < 0.7 else "makeTable"
+                ops.append({"action": action, "obj": obj, "key": key,
+                            "pred": preds})
+            elif roll < 0.3 and preds:
+                ops.append({"action": "del", "obj": obj, "key": key,
+                            "pred": preds})
+            elif self.with_counters and roll < 0.42 and not preds:
+                ops.append({"action": "set", "obj": obj, "key": key,
+                            "datatype": "counter",
+                            "value": rng.randrange(50), "pred": []})
+            else:
+                ops.append({"action": "set", "obj": obj, "key": key,
+                            "datatype": "uint",
+                            "value": rng.randrange(1000), "pred": preds})
+        return ops
+
+    def next_round(self, oracle):
+        """This round's changes against the oracle's current state; returns
+        the buffers due for delivery this round."""
+        self.round += 1
+        index, objects = visible_index(oracle.get_patch()["diffs"])
+        heads = list(oracle.heads)
+        for actor in self.rng.sample(self.actors, self.rng.randrange(1, 3)):
+            self.seqs[actor] += 1
+            start_op = self.max_op + 1
+            ops = self._ops_against(index, objects, self.rng.randrange(1, 4))
+            deps = set(heads)
+            if self.last_hash[actor]:
+                deps.add(self.last_hash[actor])
+            buf, hash_ = farm_change(self.P, actor, self.seqs[actor],
+                                     start_op, deps, ops)
+            self.last_hash[actor] = hash_
+            self.max_op = start_op + len(ops) - 1
+            due = self.round + (self.rng.randrange(1, 3)
+                                if self.rng.random() < self.delay_prob else 0)
+            self.in_flight.append((due, buf))
+        due_now = [buf for r, buf in self.in_flight if r <= self.round]
+        self.in_flight = [(r, buf) for r, buf in self.in_flight
+                          if r > self.round]
+        self.rng.shuffle(due_now)
+        return due_now
+
+    def drain(self):
+        out = [buf for _, buf in self.in_flight]
+        self.in_flight = []
+        self.rng.shuffle(out)
+        return out
+
+
+def diff_traffic(doc_ids, rounds, seed, **workload_kw):
+    """run_farm_differential's deliveries (`rounds` rounds, then
+    ``DIFF_DRAIN`` drain rounds) to the docs `doc_ids` (doc d's workload
+    seeded ``seed + 17 d``, as there) with each round's OpSet patches, the
+    oracle's state driving the generation as there. Returns (deliveries
+    [round][doc], patches [round][doc], the OpSets)."""
+    from automerge_tpu_torch.opset import OpSet
+
+    opsets = [OpSet() for _ in doc_ids]
+    loads = [FarmWorkload(seed + 17 * d, **workload_kw) for d in doc_ids]
+    deliveries, want = [], []
+    for rnd in range(rounds + DIFF_DRAIN):
+        per_doc = [load.next_round(opset) if rnd < rounds else load.drain()
+                   for load, opset in zip(loads, opsets)]
+        want.append([opset.apply_changes(bufs)
+                     for opset, bufs in zip(opsets, per_doc)])
+        deliveries.append(per_doc)
+    return deliveries, want, opsets
+
+
+def known_divergences(doc_ids):
+    """``DIFF_KNOWN`` as (round, index into `doc_ids`) pairs."""
+    at = {d: i for i, d in enumerate(doc_ids)}
+    return {(rnd, at[d]) for rnd, d in DIFF_KNOWN if d in at}
+
+
+def run_farm_diff(device, deliveries, want, opsets, known=frozenset(),
+                  prof=None, record=None):
+    """The deliveries through one farm, every round's patch of every doc
+    held to OpSet's, except that the patches at the (round, doc) pairs
+    `known` must differ from it (the divergence both packages' farms
+    share, ``DIFF_KNOWN``); then every doc's whole patch, heads and missing
+    deps. `record` (a list) collects every patch. Returns (farm, the
+    seconds of the apply_changes calls)."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+
+    prof = prof or PhaseProfile(enabled=False)
+    docs = len(opsets)
+    farm = TorchDocFarm(docs, capacity=DIFF_CAPACITY, device=device)
+    seconds = 0.0
+    for rnd, per_doc in enumerate(deliveries):
+        t0 = time.perf_counter()
+        with use_profile(prof):
+            got = farm.apply_changes(per_doc)
+        seconds += time.perf_counter() - t0
+        for d in range(docs):
+            if (got[d] != want[rnd][d]) != ((rnd, d) in known):
+                raise RuntimeError(
+                    f"farm-diff round {rnd} doc {d}: the farm's patch "
+                    f"{got[d]} {'equals' if (rnd, d) in known else 'differs from'}"
+                    f" OpSet's {want[rnd][d]}")
+        if record is not None:
+            record.extend(canon(p) for p in got)
+    for d, opset in enumerate(opsets):
+        if farm.get_patch(d) != opset.get_patch() or \
+                farm.get_heads(d) != opset.heads or \
+                farm.get_missing_deps(d) != opset.get_missing_deps():
+            raise RuntimeError(f"farm-diff doc {d}: the whole-doc patch, "
+                               "heads or missing deps differ from OpSet's")
+    return farm, seconds
+
+
+# (c) BASELINE.json configs[2]: "Counter CRDT: 64 actors, 100k concurrent
+# increments"
+
+
+def counter_actor(a):
+    return f"{a + 16:02x}" * 8
+
+
+def counter_stream(actors, changes, incs, seed):
+    """One change by actor 0 makes the root counter ``c``; then each actor
+    makes `changes` changes of `incs` ``inc`` ops of 1 on it (pred: the
+    counter's op id), each change on the actor's previous one. Returns the
+    rounds: round 0 the counter's change, round r every actor's r-th
+    change in a seeded shuffle."""
+    P = port_pkg("cpu")
+    rng = random.Random(seed)
+    creator = counter_actor(0)
+    create, first = farm_change(P, creator, 1, 1, [], [counter_set("c", 0)])
+    target = f"1@{creator}"
+    inc = [{"action": "inc", "obj": "_root", "key": "c", "value": 1,
+            "pred": [target]}] * incs
+    last = [first] * actors
+    rounds = [[create]]
+    for r in range(changes):
+        bufs = []
+        for a in range(actors):
+            buf, last[a] = farm_change(P, counter_actor(a),
+                                       r + 1 + (a == 0), 2 + r * incs,
+                                       [last[a]], inc)
+            bufs.append(buf)
+        rng.shuffle(bufs)
+        rounds.append(bufs)
+    return rounds
+
+
+def counter_value(patch, what):
+    """The counter's value in a patch that shows it."""
+    entry = patch["diffs"]["props"]["c"][f"1@{counter_actor(0)}"]
+    if entry.get("datatype") != "counter":
+        raise RuntimeError(f"{what}: c is no counter: {entry}")
+    return entry["value"]
+
+
+def run_counters(device, docs, rounds, per_round, prof=None, record=None,
+                 opset=None):
+    """Every round to every doc of one farm: after round r every doc's
+    patch reads the counter at r x `per_round`. `record` (a list) keeps
+    docs 0-1's patches; `opset`, when given, takes the same rounds and
+    every doc's patch must equal its. Returns (farm, the seconds of the
+    apply_changes calls)."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+
+    prof = prof or PhaseProfile(enabled=False)
+    farm = TorchDocFarm(docs, capacity=1 + (len(rounds) - 1) * per_round,
+                        device=device)
+    seconds = 0.0
+    for r, bufs in enumerate(rounds):
+        t0 = time.perf_counter()
+        with use_profile(prof):
+            result = farm.apply_changes([bufs] * docs)
+        seconds += time.perf_counter() - t0
+        want = opset.apply_changes(bufs) if opset is not None else None
+        for d, patch in enumerate(result):
+            value = counter_value(patch, f"counters round {r} doc {d}")
+            if value != r * per_round:
+                raise RuntimeError(f"counters round {r} doc {d}: the counter "
+                                   f"reads {value}, want {r * per_round}")
+            if want is not None and patch != want:
+                raise RuntimeError(f"counters round {r} doc {d}: the farm's "
+                                   f"patch {patch} differs from OpSet's "
+                                   f"{want}")
+        if record is not None:
+            record.extend(canon(p) for p in list(result)[:COUNTER_CPU_DOCS])
+    return farm, seconds
+
+
+# (d) tests/test_sync_v2.py's TestFarmBatchedFingerprints
+
+
+def v2_pair(device):
+    from automerge_tpu_torch import SyncFarm, TorchDocFarm
+
+    P = port_pkg(device)
+    pair = []
+    for actor, keys in (("aaaaaaaa", ("a", "x")), ("bbbbbbbb", ("b",))):
+        farm = TorchDocFarm(V2_FARM_DOCS, capacity=256, device=device)
+        for d in range(V2_FARM_DOCS):
+            buf, _ = farm_change(P, actor, 1, 1, [], [
+                uint_set(f"{k}{d}", v) for v, k in enumerate(keys)])
+            per_doc = [[] for _ in range(V2_FARM_DOCS)]
+            per_doc[d] = [buf]
+            farm.apply_changes(per_doc)
+        pair.append(SyncFarm(farm))
+    return pair
+
+
+def run_v2_sweeps(device, record):
+    """The two cases: sweeps over 4 v2 channels until quiet, at most one
+    ``sync.fingerprint_ranges`` dispatch per ``generate_messages`` call
+    (the port's observatory), every doc converged; a single sweep with
+    every channel probing is one dispatch; an empty query list none.
+    Returns the dispatches of each generate call of the first case."""
+    from automerge_tpu_torch import SyncFarm
+    from automerge_tpu_torch.obs.prof import (
+        enabled_observatory,
+        get_observatory,
+    )
+    from automerge_tpu_torch.tpu.fingerprint import FingerprintIndex
+
+    n, protocols = V2_FARM_DOCS, ["v2"] * V2_FARM_DOCS
+    prog = get_observatory().programs()["sync.fingerprint_ranges"]
+    sa, sb = v2_pair(device)
+    states = {id(sa): [SyncFarm.init_state() for _ in range(n)],
+              id(sb): [SyncFarm.init_state() for _ in range(n)]}
+    per_call = []
+    with enabled_observatory():
+        for _ in range(V2_FARM_SWEEPS):
+            moved = False
+            for src, dst in ((sa, sb), (sb, sa)):
+                before = prog.dispatches
+                out = src.generate_messages(
+                    list(zip(range(n), states[id(src)])), protocols=protocols)
+                per_call.append(prog.dispatches - before)
+                states[id(src)] = [s for s, _ in out]
+                sends = [(d, states[id(dst)][d], m)
+                         for d, (_, m) in enumerate(out) if m is not None]
+                record.extend(m for _, _, m in sends)
+                if sends:
+                    recv = dst.receive_messages(sends, protocols=protocols)
+                    for (d, _, _), (state, _p) in zip(sends, recv):
+                        states[id(dst)][d] = state
+                moved = bool(sends)
+            if not moved:
+                break
+        for d in range(n):
+            if sa.farm.get_heads(d) != sb.farm.get_heads(d):
+                raise RuntimeError(f"(d) v2 doc {d} did not converge")
+            record.append(canon(sa.farm.get_patch(d)))
+        if not 0 < sum(per_call) <= 2 * V2_FARM_SWEEPS or max(per_call) > 1:
+            raise RuntimeError(f"(d) fingerprint dispatches per generate "
+                               f"call {per_call}: want at most one each")
+        fresh, _ = v2_pair(device)
+        before = prog.dispatches
+        out = fresh.generate_messages(
+            [(d, SyncFarm.init_state()) for d in range(n)],
+            protocols=protocols)
+        probing = prog.dispatches - before
+        before = prog.dispatches
+        empty = FingerprintIndex(device=device).fingerprint_ranges([])
+        idle = prog.dispatches - before
+    if probing != 1 or any(m is None for _, m in out) or empty or idle:
+        raise RuntimeError(f"(d) one sweep with every channel probing made "
+                           f"{probing} dispatches; the empty query list "
+                           f"{idle}")
+    record.extend(m for _, m in out)
+    return per_call
+
+
+# (e) tests/test_obs.py's farm and engine counts
+
+
+def run_instrument_counts(device):
+    """test_farm_and_engine_metrics_count_real_work: 5 docs x 2 rounds x 4
+    ops, each package's counts as the JAX test reads them. Returns them."""
+    from automerge_tpu_torch import TorchDocFarm
+    from automerge_tpu_torch.obs.__main__ import _change_stream
+    from automerge_tpu_torch.obs.metrics import enabled_metrics, get_metrics
+
+    names = ("farm.rows.transcoded", "farm.rows.padding",
+             "farm.changes.applied", "engine.device.dispatches",
+             "engine.jit.cache_hits", "engine.jit.recompiles")
+    reg = get_metrics()
+    with counting_fallbacks(), enabled_metrics():
+        before = counts(names)
+        occupancy = reg.histogram("farm.batch.occupancy").count
+        farm = TorchDocFarm(5, capacity=96, device=device)
+        for buf in _change_stream("aaaaaaaa", 2, 4, seed=0):
+            farm.apply_changes([[buf]] * 5)
+        got = {k: v - before[k] for k, v in counts(names).items()}
+        got["farm.batch.occupancy"] = (
+            reg.histogram("farm.batch.occupancy").count - occupancy)
+        got["farm.pad_waste_ratio"] = reg.gauge("farm.pad_waste_ratio").value
+    want = {"farm.rows.transcoded": 40, "farm.rows.padding": 0,
+            "farm.changes.applied": 10, "engine.device.dispatches": 6,
+            "farm.batch.occupancy": 2, "farm.pad_waste_ratio": 0.0}
+    wrong = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    hits = got["engine.jit.cache_hits"] + got["engine.jit.recompiles"]
+    if wrong or hits != got["engine.device.dispatches"]:
+        raise RuntimeError(f"(e) instrument counts (got, want): {wrong}; "
+                           f"hits + recompiles {hits}")
+    return got
+
+
+def visibility_times(farm):
+    """The farm's visibility program over every doc at its current width
+    (``paged_visible_plain``, as the engine dispatches it), and inside it
+    ``visible_docs``'s ``scatter_add_`` of the live increments onto their
+    targets, on the farm's own rows, against the same scatter onto
+    distinct positions; device ms per call by CUDA events. Returns
+    (times, [docs, width])."""
+    import torch
+
+    from automerge_tpu_torch.tpu.engine import (
+        _I64_MAX,
+        _MKEY_OP_BITS,
+        ACTION_INC,
+        PAD_KEY,
+        _merge_key,
+    )
+    from automerge_tpu_torch.tpu.paging import _gather_pages, paged_visible_plain
+
+    eng = farm.engine
+    size = eng.pages.page_size
+    width = eng._width(int(eng.lengths.max()))
+    gidx = eng._page_map(eng.page_table, width, eng._pow2(farm.num_docs),
+                         fill=0)
+    times = {"visibility_ms": _time_cuda(
+        lambda: paged_visible_plain(eng.slab, gidx, page_size=size),
+        iters=5)}
+    key, op, action, value, pred, _over = _gather_pages(eng.slab, gidx, size)
+    # the scatter's operands as visible_docs builds them (every target
+    # live: no increment's counter is overwritten here)
+    mkey = _merge_key(key, op)
+    is_inc = (key != PAD_KEY) & (action == ACTION_INC)
+    target = torch.where(is_inc & (pred >= 0),
+                         (key.long() << _MKEY_OP_BITS) | pred.clamp(min=0),
+                         torch.full_like(pred, _I64_MAX))
+    tpos = torch.searchsorted(mkey, target).clamp(max=width - 1)
+    vals = torch.where(is_inc, value, torch.zeros_like(value))
+    spread = torch.arange(width, device=tpos.device).expand_as(tpos)
+    for name, pos in (("scatter_ms", tpos), ("spread_scatter_ms", spread)):
+        times[name] = _time_cuda(
+            lambda pos=pos: torch.zeros_like(vals).scatter_add_(1, pos, vals),
+            iters=20)
+    # bytes: positions and values read, the zeroed output written
+    times["scatter_bound_ms"] = 3 * vals.numel() * 8 / HBM_BYTES_PER_S * 1e3
+    return times, list(key.shape)
+
+
+def phase_share(prof, name):
+    totals = prof.totals_by_path()
+    farm_s = sum(t for path, (t, _) in totals.items() if "/" not in path)
+    return totals.get(name, (0.0, 0))[0] / farm_s if farm_s else 0.0
+
+
+def log_phase_table(prof, title):
+    log(f"  phase table ({title}, host clock):")
+    for line in prof.table().splitlines():
+        log("    " + line)
+
+
+def run_farm_phase(args, card, device, diff_docs=DIFF_DOCS,
+                   counter_docs=COUNTER_DOCS):
+    """Phase 22 (see the module docstring); logs the whole phase with its
+    parts."""
+    t0 = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    try:
+        parts = farm_phase(args, card, device, diff_docs, counter_docs)
+    finally:
+        gc.unfreeze()
+    log(f"  whole phase {time.perf_counter() - t0:.3f} s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+
+
+def farm_phase(args, card, device, diff_docs, counter_docs):
+    """Runs phase 22; returns the seconds of its parts."""
+    import torch
+
+    from automerge_tpu_torch.obs.flight import enabled_flight
+    from automerge_tpu_torch.opset import OpSet
+    from automerge_tpu_torch.profiling import PhaseProfile
+
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    fallbacks = fallback_counts()
+    # (a) the nine hand cases on the card, each call held to OpSet; the
+    # same records on the CPU
+    on_card = run_farm_basics(port_pkg(device))
+    if on_card != run_farm_basics(port_pkg("cpu")):
+        raise RuntimeError("(a) the card's farm-basics records differ from "
+                           "the CPU's")
+    log(f"phase 22 the farm held to OpSet, card {card}")
+    log(f"  (a) farm-basics: the {len(FARM_BASICS)} cases of "
+        f"tests/test_farm.py's TestFarmBasics on the card, {len(on_card)} "
+        f"patches and outcomes equal to OpSet's and to the CPU's")
+    lap("(a)")
+    # (b) the differential at phase 3's doc count, card vs OpSet and vs
+    # the CPU
+    doc_ids = range(diff_docs)
+    deliveries, want, opsets = diff_traffic(doc_ids, DIFF_ROUNDS, DIFF_SEED,
+                                            delay_prob=DIFF_DELAY)
+    known = known_divergences(doc_ids)
+    lap("(b) traffic")
+    prof = PhaseProfile()
+    on_card, on_cpu = [], []
+    farm, diff_s = run_farm_diff(device, deliveries, want, opsets, known,
+                                 prof, record=on_card)
+    rows = int(farm.engine.lengths.sum())
+    changes = sum(len(b) for per_doc in deliveries for b in per_doc)
+    check_no_fallback(fallbacks, [farm], "phase 22 (b)")
+    del farm
+    lap("(b) card")
+    run_farm_diff("cpu", deliveries, want, opsets, known, record=on_cpu)
+    if on_card != on_cpu:
+        raise RuntimeError("(b) the card's patches differ from the CPU's")
+    log(f"  (b) farm-diff-{diff_docs}: tests/test_farm.py's differential "
+        f"traffic (seed {DIFF_SEED}, 3 actors, counters, nesting, deletes, "
+        f"delay_prob {DIFF_DELAY}) over {diff_docs} docs x {DIFF_ROUNDS} "
+        f"rounds + {DIFF_DRAIN} drain rounds: {changes} changes, {rows} op "
+        f"rows committed in {diff_s:.3f} s of apply_changes "
+        f"({rows / diff_s:.1f} rows/s); every round's patch of every doc "
+        f"equal to OpSet's but at the {len(known)} (round, doc) pairs where "
+        f"both packages' farms differ from it ({sorted(known)}), all "
+        f"{len(on_card)} equal to a CPU farm's; every whole patch, heads and "
+        f"missing deps equal to OpSet's (traffic and OpSet "
+        f"{parts['(b) traffic']:.3f} s)")
+    log_phase_table(prof, "farm-diff")
+    del deliveries, want, opsets, on_card, on_cpu
+    lap("(b) cpu")
+    # (c) BASELINE.json configs[2] on every doc
+    per_round = COUNTER_ACTORS * COUNTER_INCS
+    rounds = counter_stream(COUNTER_ACTORS, COUNTER_CHANGES, COUNTER_INCS,
+                            args.seed)
+    doc_rows = 1 + COUNTER_ACTORS * COUNTER_CHANGES * COUNTER_INCS
+    log(f"  (c) counters-64x100k: BASELINE.json configs[2] per doc, "
+        f"{COUNTER_ACTORS} actors x {COUNTER_CHANGES} changes x "
+        f"{COUNTER_INCS} inc ops on one counter ({doc_rows - 1} concurrent "
+        f"increments) on {counter_docs} docs; expected slab "
+        f"{counter_docs} x {doc_rows} rows x {COUNTER_ROW_BYTES} B = "
+        f"{counter_docs * doc_rows * COUNTER_ROW_BYTES / 1e6:.1f} MB before "
+        f"page padding, slab doubling and the merge's temporaries")
+    _sync(device)
+    on_gpu = torch.device(device).type == "cuda"
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+    prof = PhaseProfile()
+    on_card = []
+    with enabled_flight() as flight:
+        flight.clear()
+        farm, counter_s = run_counters(device, counter_docs, rounds,
+                                       per_round, prof, record=on_card)
+        _sync(device)
+        grows = sum(1 for e in flight.snapshot()
+                    if e.get("event") == "engine.slab.grow")
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB" if on_gpu
+            else "not measured")
+    rows = int(farm.engine.lengths.sum())
+    if rows != counter_docs * doc_rows:
+        raise RuntimeError(f"(c) the farm holds {rows} rows, want "
+                           f"{counter_docs * doc_rows}")
+    final = COUNTER_CHANGES * per_round
+    for d in range(counter_docs):
+        value = counter_value(farm.get_patch(d), f"(c) doc {d}")
+        if value != final:
+            raise RuntimeError(f"(c) doc {d}'s whole patch reads {value}, "
+                               f"want {final}")
+    eng = farm.engine
+    owned = [p for table in eng.page_table for p in table]
+    if len(owned) != len(set(owned)) or 0 in owned or \
+            len(owned) != eng.pages.allocated:
+        raise RuntimeError(f"(c) the allocator holds {eng.pages.allocated} "
+                           f"pages, the page tables name {len(owned)}")
+    check_no_fallback(fallbacks, [farm], "phase 22 (c)")
+    incs = counter_docs * (doc_rows - 1)
+    log(f"  (c) {incs} increments in {counter_s:.3f} s of apply_changes "
+        f"({incs / counter_s:.1f} increments/s); every doc read "
+        f"{per_round} x r after round r and {final} at the end; {rows} rows, "
+        f"{eng.pages.allocated} pages held of {eng.pages.num_pages} "
+        f"(page size {eng.pages.page_size}), no page leaked; "
+        f"{grows} engine.slab.grow events; visibility "
+        f"{phase_share(prof, 'visibility'):.1%} of the farm phases; peak "
+        f"device memory {peak}")
+    log_phase_table(prof, "counters")
+    if on_gpu:
+        times, shape = visibility_times(farm)
+        log(f"  (c) visibility program at {shape} (docs x width) on the "
+            f"farm's rows, CUDA events: whole program "
+            f"{times['visibility_ms']:.4f} ms; its scatter_add_ of "
+            f"{per_round * COUNTER_CHANGES} increments a doc onto one "
+            f"position {times['scatter_ms']:.4f} ms, onto distinct "
+            f"positions {times['spread_scatter_ms']:.4f} ms, bytes bound "
+            f"{times['scatter_bound_ms']:.4f} ms")
+    del farm
+    lap("(c) card")
+    on_cpu = []
+    farm, cpu_s = run_counters("cpu", COUNTER_CPU_DOCS, rounds, per_round,
+                               record=on_cpu)
+    if on_cpu != on_card:
+        raise RuntimeError(f"(c) docs 0-{COUNTER_CPU_DOCS - 1}'s patches on "
+                           "the card differ from a CPU farm's")
+    del farm, rounds
+    lap("(c) cpu")
+    cut = counter_stream(COUNTER_ACTORS, COUNTER_CHANGES, COUNTER_CUT_INCS,
+                         args.seed)
+    farm, cut_s = run_counters(device, COUNTER_CUT_DOCS, cut,
+                               COUNTER_ACTORS * COUNTER_CUT_INCS,
+                               opset=OpSet())
+    check_no_fallback(fallbacks, [farm], "phase 22 (c)")
+    log(f"  (c) docs 0-{COUNTER_CPU_DOCS - 1}: every round's patch equal to "
+        f"a CPU farm's ({cpu_s:.3f} s there); the cut {COUNTER_ACTORS} "
+        f"actors x {COUNTER_CHANGES} x {COUNTER_CUT_INCS} increments on "
+        f"{COUNTER_CUT_DOCS} docs: every round's patch equal to OpSet's "
+        f"(farm {cut_s:.3f} s)")
+    del farm, cut
+    lap("(c) opset")
+    # (d) sync v2 over the farm on the card, card vs CPU
+    on_card, on_cpu = [], []
+    per_call = run_v2_sweeps(device, on_card)
+    run_v2_sweeps("cpu", on_cpu)
+    if on_card != on_cpu:
+        raise RuntimeError("(d) the card's v2 messages or patches differ "
+                           "from the CPU's")
+    log(f"  (d) sync v2 over {V2_FARM_DOCS} channels: converged, "
+        f"sync.fingerprint_ranges dispatches per generate call {per_call}; "
+        f"one sweep with every channel probing 1, the empty query list 0; "
+        f"messages and patches equal to the CPU's")
+    lap("(d)")
+    # (e) the farm's and the engine's counts on the card
+    got = run_instrument_counts(device)
+    log(f"  (e) instruments of tests/test_obs.py's two-call case on the "
+        f"card: {got}")
+    lap("(e)")
+    return parts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=512)
@@ -4124,7 +4959,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-21 on the card (see the module docstring); raises on the
+    """Phases 1-22 on the card (see the module docstring); raises on the
     first check that fails."""
     import shutil
     import tempfile
@@ -4699,6 +5534,10 @@ def run_phases(args) -> int:
     # 21. the per-document fault domains, the causal gate, the batched have
     # filters and a sync sweep with malformed peers
     run_faults_phase(args, table, card, device)
+
+    # 22. the farm held to OpSet on the JAX suite's cases and traffic,
+    # BASELINE's counter configuration, sync v2 and the instruments
+    run_farm_phase(args, card, device)
 
     log(card)
     log(json.dumps(table))

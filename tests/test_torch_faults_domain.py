@@ -33,6 +33,9 @@ _MODULES = {
     "paging": "tpu.paging", "sync_farm": "tpu.sync_farm",
     "sync_batch": "tpu.sync_batch", "decode": "tpu.decode",
     "codecs": "codecs", "flight": "obs.flight", "native": "native",
+    "sync_session": "sync_session", "sync_v2": "sync_v2",
+    "text_engine": "tpu.text_engine", "fingerprint": "tpu.fingerprint",
+    "prof": "obs.prof", "profiling": "profiling", "obs_main": "obs.__main__",
 }
 
 
