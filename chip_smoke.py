@@ -47,12 +47,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    varints (unsigned and signed) through the device scan;
 6. the repo's configuration 2 ("Automerge.Text: 2-actor concurrent
    insert/delete, 10k ops") on ``BatchedTextEngine`` at ``--text-docs``
-   (1,024) documents: a 64-insert seed, then 100 rounds of one 50-op
+   (256) documents: a 64-insert seed, then 100 rounds of one 50-op
    change per actor per doc (80 % inserts, 20 % deletes, tied counters).
-   Every doc's visible length must match the traffic and 32 sampled docs
+   Every doc's visible length must match the traffic and 16 sampled docs
    must equal a plain host reference;
 7. the same per-doc traffic through a server ``TorchDocFarm`` and one
-   replica farm per actor at ``--farm-text-docs`` (3) documents (one change
+   replica farm per actor at ``--farm-text-docs`` (2) documents (one change
    per doc per ``apply_changes`` call), then the Bloom sync until no
    message moves. Every farm must converge, every whole-doc patch (device
    RGA rank + mirror) must equal the farm's embedded sequential walk's,
@@ -75,7 +75,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Bloom kernels are held against their plain versions on the inputs of
    this phase's largest launches and timed there: the ``wide`` entry of
    their rows;
-11. mixed-protocol sync (``--v2-docs``, 128): phase 3's scenario with
+11. mixed-protocol sync (``--v2-docs``, 64): phase 3's scenario with
    replicas 0-3 on sync v2 channels and 4-7 on v1, so every sweep
    launches both Bloom kernels and resolves the v2 channels' fingerprint
    queries in one reduction per generate call. Every farm must converge,
@@ -99,8 +99,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    "device") and rolled back, the survivors are served by the sequential
    walk with a fault-free control farm's patches, and keep applying after;
    then every dispatch fails, and nobody is blamed;
-15. the store (``--store-docs``, 256, x 6 rounds x one 256-op change: the
-   JAX package's STORE_r01.json shape): the deliveries through a bare farm
+15. the store (``--store-docs``, 64, x 6 rounds x one 256-op change: the
+   JAX package's STORE_r01.json shape, its 256 docs cut to 64): the deliveries through a bare farm
    and through one with a ``ShardStore`` attached (fsync on), in turns
    bare, WAL, WAL, bare; the per-doc sequential loads of 16 docs against
    ``open_farm``'s batched cold start on the card, a clean recovery report
@@ -108,7 +108,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    replica caught up over the Bloom sync, and, after one more round logged
    by the hydrated farm, a torn tail that recovers exactly the acked prefix
    (``run_store``);
-16. the serving front door (``--serve-clients`` 1,024 over 128 docs, one
+16. the serving front door (``--serve-clients`` 512 over 64 docs, one
    doc per 8 clients: the JAX package's SERVE_r06.json shape cut from
    10,000 over 1,024): ``LoadGen``'s clients against ``AmServer`` and its
    ``DynamicBatcher`` over the farm on the card, 2 edits of 4 ops per
@@ -116,7 +116,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    Every client must converge (``run_serve``). Phases 15 and 16 hold both
    Bloom kernels bit-exact against their plain versions at their largest
    launches there;
-17. the public API (``--api-docs``, 128): per doc 4 API clients
+17. the public API (``--api-docs``, 32): per doc 4 API clients
    (``automerge_tpu_torch.init`` with fixed actor ids) share client 0's
    seed change (a list, a Text, a Counter, a Table), then make 8 rounds
    of one 16-op ``change()`` each (root-map sets, list and Text inserts
@@ -170,7 +170,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``python -m automerge_tpu_torch.analysis`` must exit 0. No kernel runs
    on this path: the dense merge is plain torch, as the JAX one is XLA.
 21. the per-document fault domains: (a) ``bench.py --faults``'s
-   degradation curve at 4,096 docs, one actor's stream of 8 rounds x one
+   degradation curve at 1,024 docs, one actor's stream of 8 rounds x one
    64-op change delivered to every doc with ``quarantine_threshold=None``
    and ``isolation="doc"``, at 0, 10 and 25 % poisoned docs (spread by
    stride, each poisoned delivery through a ``BYTE_CORPUS`` corrupter in
@@ -204,7 +204,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    phase 3's 512 docs x 12 rounds + 3 drain rounds, every round's patch of
    every doc equal to ``OpSet``'s, then every doc's whole patch, heads and
    missing deps; (c) ``BASELINE.json`` ``configs[2]`` ("Counter CRDT: 64
-   actors, 100k concurrent increments") on 64 docs: one change makes the
+   actors, 100k concurrent increments") on 16 docs: one change makes the
    root counter, then 64 actors x 25 changes x 64 ``inc`` ops of 1, round
    r carrying every actor's r-th change in a seeded shuffle; after round r
    every doc's counter reads 4,096 r, docs 0-1's patches equal a CPU
@@ -219,8 +219,39 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    CPU; (e) tests/test_obs.py's two-call farm case on the card:
    ``engine.device.dispatches`` 6, cache hits plus recompiles equal to it,
    40 rows transcoded, no padding. No kernel runs on this path.
+23. ``BASELINE.json`` ``configs[3]`` ("Table + nested list: 3-way
+   concurrent branch merge (fuzz_test corpus)") on 128 docs
+   (``run_branch_phase``; a stand-in corpus with shapes of its own, not
+   the upstream fuzz test's). Per doc, built through the port's API with
+   the time and the uuid factory pinned (``run_branch_corpus``):
+   a base client makes a root ``Table`` of 8 rows, each a title, a flag
+   and a 4-item list; three branch clients load it and make 4 epochs of
+   4 ``change()`` calls of 1-3 edits (titles, item inserts, deletes and
+   overwrites, rows added and removed; the mix made is logged); each
+   epoch's new changes of all three branches, deduplicated by hash, go
+   to one ``TorchDocFarm`` in one ``apply_changes`` call for every doc,
+   and each branch applies the other two's. (a) Every delivery's patch
+   of every doc equals the port's ``OpSet``'s and nothing is
+   quarantined; op rows/s to a synchronize, per-delivery latency and the
+   phase table. The lists make every doc a walk document, whose
+   incremental patch is its embedded ``OpSet``'s, made on the host, so
+   (a) holds host code; (b) holds the card's: after every delivery,
+   every doc's whole-document patch from the farm (the device merge's
+   rows, the visibility mirror, its elements ranked by
+   ``batched_rga_rank`` on the card, timed by CUDA events), read through
+   a frontend, equals the reference ``OpSet``'s whole document, heads
+   too, and after the last every branch's saved document equals it,
+   with the farm's heads (the branches' own documents are not compared
+   before that: their incremental patches carry a fault both packages'
+   ``OpSet`` share, ROADMAP queue C); (c) the first 64 docs'
+   incremental patches, and their whole-document patches after every
+   delivery, equal a CPU farm's; (d) a fresh replica catches up over the
+   Bloom sync until no message moves, with equal heads and patches, and
+   both Bloom kernels are held bit-exact at their largest launches there
+   (the ``branch`` entry of their rows); (e) no fallback and no
+   quarantine.
 
-Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19, 21, 22) fails if the
+Every fault-free phase (3, 4, 6, 7, 10-13, 15-17, 19, 21-23) fails if the
 degraded walk served a document (``farm.fallback.calls`` moved, or a
 farm has ``degraded`` docs): only phase 14's injected fault may take it.
 
@@ -235,6 +266,7 @@ import argparse
 import contextlib
 import functools
 import gc
+import importlib
 import json
 import os
 import random
@@ -252,6 +284,8 @@ NON_TENSOR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 MAP_REPLICAS, MAP_CHANGES, MAP_OPS = 8, 8, 16
 # configuration 2 per document: changes per actor, ops per change (2 actors)
 TEXT_CHANGES, TEXT_OPS = 100, 50
+# phase 6: the docs held to the plain host reference (~0.75 s each)
+TEXT_SAMPLE = 16
 # phase 10 per document: history changes, ops per change, changes each side
 # makes before it reconnects
 LONG_CHANGES, LONG_OPS, LONG_NEW = 10_000, 4, 8
@@ -1964,8 +1998,9 @@ def log_bloom_shapes(build, query):
 # the store (phase 15): the WAL's cost, the batched cold start, recovery
 
 # phase 15: docs, rounds of one change per doc, ops per change (the JAX
-# package's STORE_r01.json shape), and the sample of the per-doc loads
-STORE_DOCS, STORE_ROUNDS, STORE_OPS = 256, 6, 256
+# package's STORE_r01.json shape, its 256 docs cut to 64 to keep the
+# script inside its time limit), and the sample of the per-doc loads
+STORE_DOCS, STORE_ROUNDS, STORE_OPS = 64, 6, 256
 STORE_SAMPLE = 16
 STORE_COUNTERS = ("store.append.records", "store.append.bytes",
                   "store.fsyncs")
@@ -2285,9 +2320,9 @@ def log_store(stats, docs, rounds, ops, card):
 # the serving front door (phase 16): LoadGen's clients against AmServer
 
 # phase 16: the JAX package's SERVE_r06.json shape (10,000 clients over
-# 1,024 docs) cut to 1,024 clients over 128 docs, keeping its ~8 clients
+# 1,024 docs) cut to 512 clients over 64 docs, keeping its ~8 clients
 # per doc; per client 2 edits of 4 ops spread over 2.0 simulated s
-SERVE_CLIENTS, SERVE_CLIENTS_PER_DOC = 1024, 8
+SERVE_CLIENTS, SERVE_CLIENTS_PER_DOC = 512, 8
 SERVE_EDITS, SERVE_OPS, SERVE_SPREAD = 2, 4, 2.0
 OCCUPANCY_FLOOR = 8
 
@@ -2398,7 +2433,7 @@ def log_serve(report, clients, docs, prof, card):
 # phase 17: documents, API clients per document, rounds (one change per
 # client per round), ops per change, and the changes' pinned time
 # (seconds; the time is part of a change's bytes)
-API_DOCS, API_CLIENTS, API_ROUNDS, API_OPS = 128, 4, 8, 16
+API_DOCS, API_CLIENTS, API_ROUNDS, API_OPS = 32, 4, 8, 16
 API_TIME = 1_700_000_000
 # phase 18: the obs CLI's documents per farm and change rounds
 CLI_DOCS, CLI_ROUNDS = 64, 4
@@ -2509,7 +2544,6 @@ def run_api(device, docs, clients, rounds, seed, record=None, prof=None,
     ``save()``. `api`, `make_farm(docs, capacity)` and `sync_cls` default
     to this package's API, a ``TorchDocFarm`` on `device` and its
     ``SyncFarm``. Returns (farm, clients, stats)."""
-    import importlib
 
     from automerge_tpu_torch.profiling import PhaseProfile, use_profile
 
@@ -3524,8 +3558,9 @@ def run_dense_phase(args, card, device):
 #: one actor's stream of 8 rounds x one 64-op change, every doc the same
 FAULT_ROUNDS, FAULT_OPS = 8, 64
 FAULT_PCTS = (0, 10, 25)
-#: (a)'s docs: thousands of small documents per process
-FAULT_DOCS = 4096
+#: (a)'s docs: a thousand small documents per process (cut from 4,096 to
+#: keep the script inside its time limit)
+FAULT_DOCS = 1024
 #: bench.py --faults's default (BENCH_FAULT_DOCS): (b) and (c) run at this
 #: size, and (a)'s whole-doc ``get_patch`` check reads this many docs
 FAULT_PATCH_DOCS = 512
@@ -4127,7 +4162,7 @@ DIFF_KNOWN = frozenset(
 # per change; the docs on the card; the OpSet cut (inc ops per change,
 # docs) and the docs held to a CPU farm
 COUNTER_ACTORS, COUNTER_CHANGES, COUNTER_INCS = 64, 25, 64
-COUNTER_DOCS = 64
+COUNTER_DOCS = 16
 COUNTER_CUT_INCS, COUNTER_CUT_DOCS, COUNTER_CPU_DOCS = 1, 2, 2
 COUNTER_ROW_BYTES = 33  # key i32, op i64, action i32, value i64, pred i64, bool
 # (d) test_sync_v2.py's TestFarmBatchedFingerprints
@@ -4918,6 +4953,460 @@ def farm_phase(args, card, device, diff_docs, counter_docs):
     return parts
 
 
+# ---------------------------------------------------------------------- #
+# phase 23: BASELINE.json configs[3], "Table + nested list: 3-way
+# concurrent branch merge (fuzz_test corpus)"
+
+# the docs: 128, cut from the 512 of phases 3 and 22 (configs[4]'s 1k-doc
+# batch, cut) to keep the script inside its time limit (512 docs took
+# 123.7 s beside an H100 on an 8-core host, 256 docs 73.5 s); per doc: the base's rows and items a row;
+# epochs, change() calls per branch an epoch and edits a change (1 to
+# BRANCH_EDITS); the farms' capacity and the docs held to a CPU farm
+BRANCH_DOCS, BRANCH_ROWS, BRANCH_ITEMS = 128, 8, 4
+BRANCH_EPOCHS, BRANCH_CHANGES, BRANCH_EDITS = 4, 4, 3
+BRANCH_CAPACITY, BRANCH_CPU_DOCS = 512, 64
+BRANCH_BASE = "0ba5e000"
+BRANCH_ACTORS = ("aaaaaaaa", "bbbbbbbb", "cccccccc")
+BRANCH_TIME = 1_700_000_000
+# an edit's kind and its weight (percent) when it is drawn
+BRANCH_MIX = {"title": 30, "insert": 30, "delete": 15, "overwrite": 15,
+              "add": 5, "remove": 5}
+
+
+def branch_row(rng, tag):
+    return {"title": f"row {tag}", "done": rng.random() < 0.5,
+            "items": [f"{tag}.{j}" for j in range(BRANCH_ITEMS)]}
+
+
+def branch_edit(rng, x, tag):
+    """One edit of the board in `x` (a change's root), of a kind drawn
+    from ``BRANCH_MIX`` on a row drawn at random; `tag` is what it
+    writes. An item edit on an empty list inserts, and any edit of an
+    empty board adds a row. No edit empties a list or the board: both
+    packages' frontends read an object that the change has emptied from
+    the document as it was before the change (``get_object`` takes the
+    updated object only if it is truthy), so a later edit of it in the
+    same change fails (ROADMAP queue C). Removing the last row retitles
+    it instead, and deleting the last item overwrites it. Returns (the
+    kind drawn, the kind made)."""
+    board = x["board"]
+    ids = sorted(board.ids)
+    kind = rng.choices(list(BRANCH_MIX), list(BRANCH_MIX.values()))[0]
+    if kind == "add" or not ids:
+        board.add(branch_row(rng, tag))
+        return kind, "add"
+    row_id = rng.choice(ids)
+    if kind == "remove" and len(ids) > 1:
+        board.remove(row_id)
+        return kind, "remove"
+    row = board.by_id(row_id)
+    if kind in ("title", "remove"):
+        row["title"] = tag
+        return kind, "title"
+    items = row["items"]
+    n = len(items)
+    if kind == "insert" or n == 0:
+        items.insert(rng.randrange(n + 1), tag)
+        return kind, "insert"
+    if kind == "delete" and n > 1:
+        items.delete_at(rng.randrange(n))
+        return kind, "delete"
+    items[rng.randrange(n)] = tag
+    return kind, "overwrite"
+
+
+def branch_doc(api, seed):
+    """One doc of phase 23's corpus (`api` the package whose API builds
+    it, its uuid factory pinned by the caller): a base client makes the
+    root Table ``board``, then its rows (the frontend refuses rows in the
+    change that creates the table); three branch clients load the base
+    and make ``BRANCH_EPOCHS`` epochs of ``BRANCH_CHANGES`` changes each.
+    After each epoch every branch's ``get_changes`` since the epoch
+    began, deduplicated by hash (it repeats changes the branch merged
+    before), makes the epoch's delivery (the base's changes lead the
+    first), and each branch applies the other two's. Returns
+    (deliveries, the three branches' ``save()`` bytes after the last
+    epoch, stats: repeats dropped, edits made of each kind, edits steered
+    from the kind drawn)."""
+    columnar = importlib.import_module(f"{api.__name__}.columnar")
+    rng = random.Random(seed)
+    made = dict.fromkeys(BRANCH_MIX, 0)
+    steered = 0
+
+    def edit(x, tag):
+        nonlocal steered
+        drawn, kind = branch_edit(rng, x, tag)
+        made[kind] += 1
+        steered += drawn != kind
+
+    base = api.change(api.init(BRANCH_BASE),
+                      {"time": BRANCH_TIME, "message": "board"},
+                      lambda x: x.__setitem__("board", api.Table()))
+    base = api.change(base, {"time": BRANCH_TIME, "message": "rows"},
+                      lambda x: [x["board"].add(branch_row(rng, i))
+                                 for i in range(BRANCH_ROWS)])
+    first = api.get_all_changes(base)
+    branches = [api.apply_changes(api.init(actor), first)[0]
+                for actor in BRANCH_ACTORS]
+    seen = {columnar.decode_change_meta(b, True)["hash"] for b in first}
+    deliveries, repeats = [], 0
+    for e in range(BRANCH_EPOCHS):
+        began = list(branches)
+        for b in range(len(branches)):
+            for k in range(BRANCH_CHANGES):
+                tags = [f"{b}.{e}.{k}.{i}"
+                        for i in range(rng.randint(1, BRANCH_EDITS))]
+                branches[b] = api.change(
+                    branches[b], {"time": BRANCH_TIME + 1 + e},
+                    lambda x, tags=tags: [edit(x, t) for t in tags])
+        new = []
+        for b, doc in enumerate(branches):
+            mine = []
+            for buf in api.get_changes(began[b], doc):
+                h = columnar.decode_change_meta(buf, True)["hash"]
+                if h in seen:
+                    repeats += 1
+                else:
+                    seen.add(h)
+                    mine.append(buf)
+            new.append(mine)
+        deliveries.append((list(first) if e == 0 else [])
+                          + [buf for mine in new for buf in mine])
+        branches = [api.apply_changes(doc, [buf for o, mine in enumerate(new)
+                                            if o != b for buf in mine])[0]
+                    for b, doc in enumerate(branches)]
+    return deliveries, [api.save(doc) for doc in branches], {
+        "repeats": repeats, "edits": made, "steered": steered}
+
+
+def run_branch_corpus(docs, seed, api=None):
+    """Phase 23's corpus: doc `d` by ``branch_doc`` seeded `seed` + `d`,
+    over `api` (default: this package's), its Table row ids from a uuid
+    factory seeded with its seed. Returns (deliveries [epoch][doc], the
+    branches' ``save()`` bytes after the last epoch [doc][branch], stats:
+    the repeats ``get_changes`` returned, the edits made of each kind,
+    those steered from the kind drawn, and seconds)."""
+    if api is None:
+        import automerge_tpu_torch as api
+    uuid_module = importlib.import_module(f"{api.__name__}.uuid")
+    t0 = time.perf_counter()
+    per_doc = []
+    try:
+        for d in range(docs):
+            ids = random.Random(f"row ids {seed + d}")
+            uuid_module.set_factory(lambda: f"{ids.getrandbits(128):032x}")
+            per_doc.append(branch_doc(api, seed + d))
+    finally:
+        uuid_module.reset_factory()
+    stats = {"repeats": sum(s["repeats"] for _, _, s in per_doc),
+             "edits": {k: sum(s["edits"][k] for _, _, s in per_doc)
+                       for k in BRANCH_MIX},
+             "steered": sum(s["steered"] for _, _, s in per_doc),
+             "s": time.perf_counter() - t0}
+    deliveries = [list(epoch) for epoch in zip(*(d for d, _, _ in per_doc))]
+    return deliveries, [saves for _, saves, _ in per_doc], stats
+
+
+def branch_reference(deliveries):
+    """Every delivery of phase 23's corpus through one port ``OpSet`` per
+    doc. Returns (patches [epoch][doc], the OpSets, the documents after
+    each delivery [epoch][doc]: each OpSet's whole-document patch read
+    through ``Frontend.apply_patch``, with its heads)."""
+    from automerge_tpu_torch import Frontend
+    from automerge_tpu_torch.opset import OpSet
+
+    opsets = [OpSet() for _ in deliveries[0]]
+    want, docs = [], []
+    for epoch in deliveries:
+        want.append([o.apply_changes(bufs) for o, bufs in zip(opsets, epoch)])
+        docs.append([(Frontend.apply_patch(Frontend.init(), o.get_patch()),
+                      o.heads) for o in opsets])
+    return want, opsets, docs
+
+
+def run_branch_merge(device, deliveries, want, prof=None, record=None,
+                     make_farm=None, after=None):
+    """The three-way merge: each epoch's delivery to every doc in one
+    ``apply_changes`` call to one farm (`make_farm(docs, capacity)`, by
+    default a ``TorchDocFarm`` on `device`), timed to a synchronize;
+    every doc's patch must equal `want`'s (``branch_reference``) and no
+    delivery may be quarantined. The lists make every doc a walk document,
+    whose incremental patch is its embedded ``OpSet``'s, made on the host:
+    what the card computed shows in whole-document reads, which
+    `after(epoch, farm)` may make after each epoch, outside the timed
+    window. `record` (a list) collects every patch. Returns (farm, the
+    seconds of each call)."""
+    from automerge_tpu_torch.profiling import PhaseProfile, use_profile
+
+    if make_farm is None:
+        from automerge_tpu_torch import TorchDocFarm
+
+        def make_farm(n, capacity):
+            return TorchDocFarm(n, capacity=capacity, device=device)
+
+    prof = prof or PhaseProfile(enabled=False)
+    farm = make_farm(len(deliveries[0]), BRANCH_CAPACITY)
+    latency = []
+    for e, per_doc in enumerate(deliveries):
+        _sync(device)
+        t0 = time.perf_counter()
+        with use_profile(prof):
+            result = farm.apply_changes(per_doc)
+        _sync(device)
+        latency.append(time.perf_counter() - t0)
+        if result.quarantined:
+            raise RuntimeError(f"branch-merge epoch {e}: docs "
+                               f"{result.quarantined} quarantined")
+        for d, patch in enumerate(result):
+            if patch != want[e][d]:
+                raise RuntimeError(
+                    f"branch-merge epoch {e} doc {d}: the farm's patch "
+                    f"{patch} differs from OpSet's {want[e][d]}")
+        if record is not None:
+            record.extend(canon(p) for p in result)
+        if after is not None:
+            after(e, farm)
+    return farm, latency
+
+
+def check_whole(farm, reference, what, api=None, keep=0):
+    """Phase 23 (b), after a delivery: every doc's whole-document patch
+    from the farm (the card's ranks and visibility mirror), read through
+    ``Frontend.apply_patch``, equals the reference's (`reference` [doc]
+    of (document, heads), ``branch_reference``'s), and its heads are the
+    reference's. Returns the first `keep` docs' whole patches
+    (``canon``)."""
+    if api is None:
+        import automerge_tpu_torch as api
+
+    kept = []
+    for d, (want, heads) in enumerate(reference):
+        patch = farm.get_patch(d)
+        if d < keep:
+            kept.append(canon(patch))
+        if not api.equals(api.Frontend.apply_patch(api.Frontend.init(),
+                                                   patch), want):
+            raise RuntimeError(f"{what}: doc {d}: the farm's whole document "
+                               "differs from OpSet's")
+        if farm.get_heads(d) != heads:
+            raise RuntimeError(f"{what}: doc {d}: the farm's heads differ "
+                               "from OpSet's")
+    return kept
+
+
+def check_branches(farm, saves, what, api=None):
+    """Phase 23 (b), after the last delivery: every branch document,
+    loaded from its ``save()`` bytes (`saves` [doc][branch]), equals the
+    farm's whole-document patch read through ``Frontend.apply_patch``, and
+    its heads are the farm's."""
+    if api is None:
+        import automerge_tpu_torch as api
+
+    backend = api.get_backend()
+    for d, row in enumerate(saves):
+        farm_doc = api.Frontend.apply_patch(api.Frontend.init(),
+                                            farm.get_patch(d))
+        heads = farm.get_heads(d)
+        for b, data in enumerate(row):
+            saved = api.load(data)
+            if not api.equals(saved, farm_doc):
+                raise RuntimeError(f"{what}: doc {d} branch {b}: its saved "
+                                   "document differs from the farm's")
+            state = api.Frontend.get_backend_state(saved, "check_branches")
+            if backend.get_heads(state) != heads:
+                raise RuntimeError(f"{what}: doc {d} branch {b}: heads "
+                                   "differ from the farm's")
+
+
+@contextlib.contextmanager
+def timed_rga_ranks(device):
+    """Routes ``batched_rga_rank`` through CUDA events while the block
+    runs; yields a tally: ``calls``, and after the block ``ms``, the
+    device time of every call (None off the card)."""
+    import torch
+
+    from automerge_tpu_torch.tpu import rga
+
+    fn, events = rga.batched_rga_rank, []
+    on_gpu = torch.device(device).type == "cuda"
+    tally = {"calls": 0, "ms": None}
+
+    def timed(*args):
+        tally["calls"] += 1
+        if not on_gpu:
+            return fn(*args)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    rga.batched_rga_rank = timed
+    try:
+        yield tally
+    finally:
+        rga.batched_rga_rank = fn
+    if on_gpu:
+        torch.cuda.synchronize()
+        tally["ms"] = sum(s.elapsed_time(e) for s, e in events)
+
+
+def run_branch_catchup(device, farm, docs, rec):
+    """Phase 23 (d): a fresh replica farm catches up with `farm` over the
+    Bloom sync until no message moves; every doc's heads and whole patch
+    must then match. Returns (replica, sweeps)."""
+    from automerge_tpu_torch import SyncFarm, TorchDocFarm
+
+    replica = TorchDocFarm(docs, capacity=BRANCH_CAPACITY, device=device)
+    sweeps = sync_until_quiet(device, SyncFarm(farm), [SyncFarm(replica)],
+                              docs, rec)
+    check_converged([farm, replica], docs)
+    return replica, sweeps
+
+
+def check_no_quarantine(farms, what):
+    """Phase 23 (e): no farm failed a delivery or holds a quarantined doc."""
+    for f in farms:
+        if f.quarantine or any(f.fault_counts):
+            raise RuntimeError(f"{what}: docs {sorted(f.quarantine)} "
+                               f"quarantined, failed deliveries "
+                               f"{[d for d, n in enumerate(f.fault_counts) if n]}")
+
+
+def run_branch_phase(args, table, card, device, docs=BRANCH_DOCS):
+    """Phase 23 (see the module docstring) on `docs` docs; logs the whole
+    phase with its parts."""
+    t0 = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    try:
+        parts = branch_phase(args, table, card, device, docs)
+    finally:
+        gc.unfreeze()
+    log(f"  whole phase {time.perf_counter() - t0:.3f} s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+
+
+def branch_phase(args, table, card, device, docs):
+    """Runs phase 23; returns the seconds of its parts."""
+    import torch
+
+    from automerge_tpu_torch.profiling import PhaseProfile
+    from automerge_tpu_torch.tpu import bloom_kernels as bk
+
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    fallbacks = fallback_counts()
+    deliveries, saves, stats = run_branch_corpus(docs, args.seed)
+    lap("corpus")
+    want, _opsets, reference = branch_reference(deliveries)
+    lap("reference")
+    changes = sum(len(bufs) for epoch in deliveries for bufs in epoch)
+    nbytes = sum(len(b) for epoch in deliveries for bufs in epoch
+                 for b in bufs)
+    log(f"phase 23 branch-merge-{docs}: BASELINE.json configs[3] (a Table "
+        f"of {BRANCH_ROWS} rows, each with a {BRANCH_ITEMS}-item list; "
+        f"{len(BRANCH_ACTORS)} branches x {BRANCH_EPOCHS} epochs x "
+        f"{BRANCH_CHANGES} changes of 1-{BRANCH_EDITS} edits) on {docs} "
+        f"docs, card {card}")
+    log(f"  corpus through the API: {changes} changes, {nbytes} bytes, "
+        f"{stats['repeats']} repeats of get_changes dropped by hash "
+        f"({stats['s']:.3f} s); edits made {stats['edits']}, "
+        f"{stats['steered']} of them steered from the kind drawn; OpSet "
+        f"reference {parts['reference']:.3f} s")
+    on_gpu = torch.device(device).type == "cuda"
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+    prof = PhaseProfile()
+    on_card, whole_card = [], []
+    cpu_docs = min(BRANCH_CPU_DOCS, docs)
+    ranks = {"calls": 0, "ms": None, "s": 0.0}
+
+    def converged(e, farm):
+        # (b) after every delivery, the farm's whole-document patch, whose
+        # elements the card ranks, against OpSet's; after the last, every
+        # branch saved and loaded against it too
+        t = time.perf_counter()
+        with timed_rga_ranks(device) as tally:
+            whole_card.append(check_whole(farm, reference[e],
+                                          f"phase 23 (b) epoch {e}",
+                                          keep=cpu_docs))
+            if e == len(deliveries) - 1:
+                check_branches(farm, saves, "phase 23 (b)")
+        ranks["calls"] += tally["calls"]
+        if tally["ms"] is not None:
+            ranks["ms"] = (ranks["ms"] or 0.0) + tally["ms"]
+        ranks["s"] += time.perf_counter() - t
+
+    bk.reset_launch_counts()
+    # (a) the four three-way deliveries, every patch held to OpSet's
+    farm, latency = run_branch_merge(device, deliveries, want, prof,
+                                     record=on_card, after=converged)
+    merge_s = sum(latency)
+    rows = int(farm.engine.lengths.sum())
+    log(f"  (a) {rows} op rows committed in {merge_s:.3f} s of "
+        f"apply_changes to a synchronize ({rows / merge_s:.1f} op rows/s); "
+        f"per delivery {[round(s, 4) for s in latency]} s; every patch of "
+        f"every doc equal to OpSet's (on walk documents the embedded "
+        f"OpSet's, made on the host); nothing quarantined")
+    log_phase_table(prof, "branch-merge")
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB" if on_gpu
+            else "not measured")
+    eng = farm.engine
+    ms = ranks["ms"]
+    log(f"  (b) after each of the {len(deliveries)} deliveries, every "
+        f"doc's whole-document patch from the farm equals OpSet's, heads "
+        f"too; after the last, every branch's saved document ({docs} x "
+        f"{len(BRANCH_ACTORS)}) equals it, with the farm's heads "
+        f"({ranks['s']:.3f} s); batched_rga_rank {ranks['calls']} calls, "
+        f"{ms if ms is None else round(ms, 4)} device ms (CUDA events); "
+        f"{eng.pages.allocated} pages held of {eng.pages.num_pages} (page "
+        f"size {eng.pages.page_size}); peak device memory {peak}")
+    del saves, reference
+    lap("(a), (b)")
+    # (c) the first docs through a CPU farm, byte for byte: its incremental
+    # patches and, after each delivery, its whole-document patches
+    on_cpu, whole_cpu = [], []
+    run_branch_merge("cpu", [epoch[:cpu_docs] for epoch in deliveries],
+                     [epoch[:cpu_docs] for epoch in want], record=on_cpu,
+                     after=lambda _e, f: whole_cpu.append(
+                         [canon(f.get_patch(d)) for d in range(cpu_docs)]))
+    if on_cpu != [p for e in range(len(deliveries))
+                  for p in on_card[e * docs:e * docs + cpu_docs]]:
+        raise RuntimeError(f"(c) docs 0-{cpu_docs - 1}'s patches on the "
+                           "card differ from a CPU farm's")
+    if whole_cpu != whole_card:
+        raise RuntimeError(f"(c) docs 0-{cpu_docs - 1}'s whole-document "
+                           "patches on the card differ from a CPU farm's")
+    log(f"  (c) docs 0-{cpu_docs - 1}: every delivery's patches and the "
+        f"whole-document patches after it equal to a CPU farm's")
+    del deliveries, want, on_card, on_cpu, whole_card, whole_cpu
+    lap("(c)")
+    # (d) a fresh replica catches up over the Bloom sync
+    with recorded_bloom_launches() as (rec_build, rec_query):
+        replica, sweeps = run_branch_catchup(device, farm, docs,
+                                             lambda _msg: None)
+    launches = dict(bk.LAUNCHES)
+    log(f"  (d) a fresh replica caught up in {len(sweeps)} sweeps, "
+        f"{sum(sw.moved for sw in sweeps)} messages, "
+        f"{sum(sw.bytes for sw in sweeps)} bytes, "
+        f"{sum(sw.seconds for sw in sweeps):.3f} s; heads and whole patches "
+        f"equal; kernel launches {launches}")
+    check_launched(table, launches, rec_build, rec_query, "branch",
+                   "phase 23")
+    # (e) no fallback, no quarantine
+    check_no_fallback(fallbacks, [farm, replica], "phase 23")
+    check_no_quarantine([farm, replica], "phase 23")
+    lap("(d), (e)")
+    return parts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--docs", type=int, default=512)
@@ -4925,9 +5414,9 @@ def main(argv=None) -> int:
     parser.add_argument("--changes", type=int, default=MAP_CHANGES)
     parser.add_argument("--ops", type=int, default=MAP_OPS)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--text-docs", type=int, default=1024)
-    parser.add_argument("--farm-text-docs", type=int, default=3)
-    parser.add_argument("--v2-docs", type=int, default=128)
+    parser.add_argument("--text-docs", type=int, default=256)
+    parser.add_argument("--farm-text-docs", type=int, default=2)
+    parser.add_argument("--v2-docs", type=int, default=64)
     parser.add_argument("--fault-docs", type=int, default=64)
     parser.add_argument("--store-docs", type=int, default=STORE_DOCS)
     parser.add_argument("--serve-clients", type=int, default=SERVE_CLIENTS)
@@ -4959,7 +5448,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args) -> int:
-    """Phases 1-22 on the card (see the module docstring); raises on the
+    """Phases 1-23 on the card (see the module docstring); raises on the
     first check that fails."""
     import shutil
     import tempfile
@@ -5154,7 +5643,7 @@ def run_phases(args) -> int:
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(args.seed)
     sample = tuple(int(d) for d in rng.choice(
-        args.text_docs, min(32, args.text_docs), replace=False))
+        args.text_docs, min(TEXT_SAMPLE, args.text_docs), replace=False))
     eng, traffic, kept, apply_s = run_text_engine(
         device, args.text_docs, TEXT_CHANGES, TEXT_OPS, args.seed,
         sample)
@@ -5538,6 +6027,9 @@ def run_phases(args) -> int:
     # 22. the farm held to OpSet on the JAX suite's cases and traffic,
     # BASELINE's counter configuration, sync v2 and the instruments
     run_farm_phase(args, card, device)
+
+    # 23. BASELINE's table-and-nested-list three-way branch merge
+    run_branch_phase(args, table, card, device)
 
     log(card)
     log(json.dumps(table))

@@ -10,8 +10,11 @@ import json
 
 import pytest
 
+import automerge_tpu
+import automerge_tpu_torch
 from test_farm import Workload, make_change
-from test_torch_faults_domain import twin_pkgs
+from test_torch_api_doc import PACKAGES
+from test_torch_faults_domain import Pkg, twin_pkgs
 
 SEEDS = [11, 23, 47]
 ROUNDS = 10
@@ -178,7 +181,11 @@ def test_device_fault_fallback_parity(monkeypatch):
 
 def _metric_state(reg):
     """Metric snapshot minus the chain-routing counters themselves and the
-    counters of process-global caches (decode LRU, compile caches)."""
+    counters of process-global caches (decode LRU, compile caches). An
+    instrument reading 0 is left out: the farm makes some instruments
+    lazily (``farm.quarantine.causes.<kind>``), so whether a reset one is
+    there depends on what ran earlier in the process, and a missing one
+    reads as 0, as ``metric_values`` reads it."""
     skip = {
         "farm.gate.vector_changes", "farm.gate.oracle_docs",
         "farm.transcode.oracle_docs", "farm.patch.device_columns",
@@ -189,7 +196,8 @@ def _metric_state(reg):
             continue
         if "decode" in name or "jit" in name or name.startswith("codecs."):
             continue
-        out[name] = snap["value"]
+        if snap["value"] != 0:
+            out[name] = snap["value"]
     return out
 
 
@@ -208,36 +216,56 @@ def _cache_state(farm):
     return state
 
 
+def _reroute_scenario(P, rec):
+    buf_a, h_a = set_change("aaaaaaaa", 1, 1, [], "x", 1)
+    buf_b, _ = set_change("aaaaaaaa", 2, 2, [h_a], "y", 2)
+
+    def run(mode):
+        reg = P.registry()
+        reg.reset()
+        with P.metrics.enabled_metrics():
+            farm = P.farm(1, capacity=32, quarantine_threshold=None,
+                          gate_mode=mode)
+            (p1,) = farm.apply_changes([[buf_a]])
+            (p2,) = farm.apply_changes([[buf_b, buf_b]])
+        return farm, [canon(p1), canon(p2)], _metric_state(reg)
+
+    farm_c, patches_c, metrics_c = run("columnar")
+    farm_o, patches_o, metrics_o = run("oracle")
+    assert patches_c == patches_o
+    assert metrics_c == metrics_o
+    assert _cache_state(farm_c) == _cache_state(farm_o)
+    assert_farm_state_equal(farm_c, farm_o, rec, "dup re-route")
+    rec.value(patches_c)
+    rec.value({k: v for k, v in metrics_c.items()
+               if k.startswith(("farm.", "sync."))})
+    rec.value(_cache_state(farm_c))
+
+
 def test_oracle_reroute_matches_scalar_only_run(monkeypatch):
     """Besides the JAX test's checks, the farm metrics that both packages
     keep (the port's registry also holds kernel and engine counters of its
     own) must agree between the packages."""
-    def scenario(P, rec):
-        buf_a, h_a = set_change("aaaaaaaa", 1, 1, [], "x", 1)
-        buf_b, _ = set_change("aaaaaaaa", 2, 2, [h_a], "y", 2)
+    twin_pkgs(_reroute_scenario, monkeypatch)
 
-        def run(mode):
-            reg = P.registry()
-            reg.reset()
-            with P.metrics.enabled_metrics():
-                farm = P.farm(1, capacity=32, quarantine_threshold=None,
-                              gate_mode=mode)
-                (p1,) = farm.apply_changes([[buf_a]])
-                (p2,) = farm.apply_changes([[buf_b, buf_b]])
-            return farm, [canon(p1), canon(p2)], _metric_state(reg)
 
-        farm_c, patches_c, metrics_c = run("columnar")
-        farm_o, patches_o, metrics_o = run("oracle")
-        assert patches_c == patches_o
-        assert metrics_c == metrics_o
-        assert _cache_state(farm_c) == _cache_state(farm_o)
-        assert_farm_state_equal(farm_c, farm_o, rec, "dup re-route")
-        rec.value(patches_c)
-        rec.value({k: v for k, v in metrics_c.items()
-                   if k.startswith(("farm.", "sync."))})
-        rec.value(_cache_state(farm_c))
-
-    twin_pkgs(scenario, monkeypatch)
+def test_oracle_reroute_twin_after_one_registry_made_the_cause(monkeypatch):
+    """The twin above must not read the process's history: an earlier
+    file in the same worker may have quarantined a doc for packing in one
+    package only, so that package's registry already holds
+    ``farm.quarantine.causes.packing`` when the scenario resets it. That
+    state is made here: the cause is taken out of both registries, then
+    created in the port's alone."""
+    name = "farm.quarantine.causes.packing"
+    for P in map(Pkg, PACKAGES):
+        monkeypatch.delitem(P.registry()._instruments, name, raising=False)
+        monkeypatch.delitem(P.farm_mod._QUARANTINE_CAUSES, "packing",
+                            raising=False)
+    port = Pkg(automerge_tpu_torch)
+    monkeypatch.setitem(port.farm_mod._QUARANTINE_CAUSES, "packing",
+                        port.registry().counter(name))
+    assert name not in Pkg(automerge_tpu).registry().as_dict()
+    twin_pkgs(_reroute_scenario, monkeypatch)
 
 
 def test_seq_anomaly_reroutes_to_canonical_error(monkeypatch):

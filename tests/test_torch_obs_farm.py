@@ -18,7 +18,10 @@ compiled these shapes before, which a file sharing its worker with
 test_obs.py or test_torch_farm_smoke.py cannot promise."""
 import pytest
 
-from test_torch_faults_domain import twin_pkgs
+import automerge_tpu
+import automerge_tpu_torch
+from test_torch_api_doc import PACKAGES
+from test_torch_faults_domain import Pkg, metric_values, twin_pkgs
 
 
 def _stream(P, rounds, ops, actor="aaaaaaaa", seed=0):
@@ -26,8 +29,14 @@ def _stream(P, rounds, ops, actor="aaaaaaaa", seed=0):
 
 
 def _counts(P, names):
-    reg = P.registry()
-    return [reg.as_dict().get(name) for name in names]
+    """The named instruments' values in `P`'s registry, in order, read by
+    ``metric_values``: one this process has not created yet reads 0, as a
+    freshly reset counter does. The farm makes each
+    ``farm.quarantine.causes.<kind>`` counter at its first quarantine of
+    that kind, so whether the name is there depends on what ran earlier
+    in the process, not on the scenario."""
+    values = metric_values(P, names)
+    return [values[name] for name in names]
 
 
 def test_sequential_and_batched_sync_share_instruments(monkeypatch):
@@ -140,34 +149,54 @@ def test_farm_pad_waste_with_uneven_docs(monkeypatch):
     twin_pkgs(scenario, monkeypatch)
 
 
-def test_gate_deferral_and_prevalidation_abort_metrics(monkeypatch):
-    def scenario(P, rec):
-        reg = P.registry()
-        names = ["farm.gate.deferrals", "farm.prevalidation.aborts",
-                 "farm.quarantine.causes.packing"]
-        reg.reset()
-        with P.metrics.enabled_metrics():
-            farm = P.farm(1, capacity=32)
-            stream = _stream(P, 2, 2)
-            farm.apply_changes([[stream[1]]])
-            assert reg.counter("farm.gate.deferrals").value == 1
-            big = P.columnar.encode_change({
-                "actor": "bbbbbbbb", "seq": 1, "startOp": 1 << 24,
-                "time": 0, "deps": [],
-                "ops": [{"action": "set", "obj": "_root", "key": "k",
-                         "datatype": "uint", "value": 1, "pred": []}],
-            })
-            with pytest.raises(ValueError) as exc_info:
-                farm.apply_changes([[big]], isolation="batch")
-            assert reg.counter("farm.prevalidation.aborts").value == 1
-            rec.value([type(exc_info.value).__name__, str(exc_info.value)])
-            rec.value(_counts(P, names))
-            farm.apply_changes([[big]])
-            assert reg.counter("farm.quarantine.causes.packing").value == 1
-            assert reg.counter("farm.prevalidation.aborts").value == 1
-            rec.value(_counts(P, names))
+def _gate_deferral_scenario(P, rec):
+    reg = P.registry()
+    names = ["farm.gate.deferrals", "farm.prevalidation.aborts",
+             "farm.quarantine.causes.packing"]
+    reg.reset()
+    with P.metrics.enabled_metrics():
+        farm = P.farm(1, capacity=32)
+        stream = _stream(P, 2, 2)
+        farm.apply_changes([[stream[1]]])
+        assert reg.counter("farm.gate.deferrals").value == 1
+        big = P.columnar.encode_change({
+            "actor": "bbbbbbbb", "seq": 1, "startOp": 1 << 24,
+            "time": 0, "deps": [],
+            "ops": [{"action": "set", "obj": "_root", "key": "k",
+                     "datatype": "uint", "value": 1, "pred": []}],
+        })
+        with pytest.raises(ValueError) as exc_info:
+            farm.apply_changes([[big]], isolation="batch")
+        assert reg.counter("farm.prevalidation.aborts").value == 1
+        rec.value([type(exc_info.value).__name__, str(exc_info.value)])
+        rec.value(_counts(P, names))
+        farm.apply_changes([[big]])
+        assert reg.counter("farm.quarantine.causes.packing").value == 1
+        assert reg.counter("farm.prevalidation.aborts").value == 1
+        rec.value(_counts(P, names))
 
-    twin_pkgs(scenario, monkeypatch)
+
+def test_gate_deferral_and_prevalidation_abort_metrics(monkeypatch):
+    twin_pkgs(_gate_deferral_scenario, monkeypatch)
+
+
+def test_gate_deferral_twin_after_one_registry_made_the_cause(monkeypatch):
+    """The twin above must not read the process's history: an earlier
+    file in the same worker may have quarantined a doc for packing in one
+    package only, so that package's registry already holds
+    ``farm.quarantine.causes.packing`` when the scenario resets it. That
+    state is made here: the cause is taken out of both registries, then
+    created in the port's alone."""
+    name = "farm.quarantine.causes.packing"
+    for P in map(Pkg, PACKAGES):
+        monkeypatch.delitem(P.registry()._instruments, name, raising=False)
+        monkeypatch.delitem(P.farm_mod._QUARANTINE_CAUSES, "packing",
+                            raising=False)
+    port = Pkg(automerge_tpu_torch)
+    monkeypatch.setitem(port.farm_mod._QUARANTINE_CAUSES, "packing",
+                        port.registry().counter(name))
+    assert name not in Pkg(automerge_tpu).registry().as_dict()
+    twin_pkgs(_gate_deferral_scenario, monkeypatch)
 
 
 def test_sync_round_trip_metrics(monkeypatch):
