@@ -61,6 +61,11 @@ _M_CHUNKS = _METRICS.counter(
 _M_BYTES = _METRICS.counter(
     "codecs.vector.bytes", "column bytes decoded by the vectorized passes"
 )
+_M_LOOKUPS = _METRICS.counter(
+    "decode.cache.lookups",
+    "change buffers a delivery looked up in the decode LRU "
+    "(warm_decode_cache); with codecs.vector.chunks, the LRU's miss rate",
+)
 
 #: expansion guard: a corrupt run count must not allocate unbounded rows
 #: before validation can reject it — over the cap, the scalar oracle owns
@@ -535,6 +540,7 @@ def warm_decode_cache(buffers) -> int:
     buffer). Buffers that fail to decode are left uncached — the
     per-document delivery path re-raises their exact error inside its own
     fault domain. Returns the number of chunks decoded."""
+    _M_LOOKUPS.inc(len(buffers))
     cache = columnar._DECODED_CHANGE_CACHE
     misses = []
     seen = set()

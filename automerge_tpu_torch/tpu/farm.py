@@ -1343,7 +1343,8 @@ class TorchDocFarm:
         transcode_columns -> gate+transcode (scalar oracle) -> pack ->
         device_dispatch -> fallback_walk (only after a failed dispatch) ->
         visibility (host mirror merge + scoped device readback of stale
-        spans) -> patch_assembly (vectorized over the mirror)."""
+        spans) -> patch_assembly (vectorized over the mirror); prevalidate
+        between decode and walk, decode_parse inside decode."""
         from ..profiling import get_profile
 
         if isolation not in ("doc", "batch"):
@@ -1436,9 +1437,10 @@ class TorchDocFarm:
             # loop below then hits the shared LRU. Buffers the batch pass
             # cannot decode stay uncached and raise their canonical error
             # inside the owning doc's fault domain.
-            warm_decode_cache(
-                [b for buffers in per_doc_buffers for b in buffers]
-            )
+            with prof.span("decode_parse"):
+                warm_decode_cache(
+                    [b for buffers in per_doc_buffers for b in buffers]
+                )
             per_doc_decoded = []
             for d, buffers in enumerate(per_doc_buffers):
                 decoded = []
@@ -1462,17 +1464,18 @@ class TorchDocFarm:
         # Docs receiving no changes this call skip prevalidation entirely:
         # their queue was validated at its original delivery and a queued
         # change can only become ready when a NEW change for the same doc
-        # commits. Its time falls in no phase, as in the JAX farm's table.
-        for d, decoded in enumerate(per_doc_decoded):
-            if not decoded:
-                continue
-            try:
-                self._prevalidate_limits(d, decoded)
-            except ValueError as exc:
-                if not doc_mode:
-                    _M_ABORTS.inc()
-                    raise
-                quarantine(d, exc)
+        # commits. The JAX farm's table leaves this time in no phase.
+        with prof.phase("prevalidate"):
+            for d, decoded in enumerate(per_doc_decoded):
+                if not decoded:
+                    continue
+                try:
+                    self._prevalidate_limits(d, decoded)
+                except ValueError as exc:
+                    if not doc_mode:
+                        _M_ABORTS.inc()
+                        raise
+                    quarantine(d, exc)
 
         # list/text-targeting docs route through the reference walk, whose
         # patch is authoritative for them (byte-exact edit streams; see

@@ -42,6 +42,7 @@ import torch
 from ..columnar import decode_change_meta_cached
 from ..errors import SyncProtocolError
 from ..obs.metrics import get_metrics
+from ..obs.spans import get_trace
 from ..sync import (
     BITS_PER_ENTRY,
     NUM_PROBES,
@@ -85,6 +86,11 @@ _M_BLOOM_FP = _METRICS.counter("sync.bloom.false_positives")
 _M_REJECTED = _METRICS.counter("sync.messages.rejected")
 _M2_MSGS_RECV = _METRICS.counter("sync.v2.messages.received")
 _M2_REJECTED = _METRICS.counter("sync.v2.messages.rejected")
+_M_CHANNELS_SWEPT = _METRICS.counter(
+    "sync.channels.swept",
+    "channels walked by generate_messages; with sync.messages.generated, "
+    "the channels a sweep walks that send nothing",
+)
 _M_SHED_QUARANTINED = _METRICS.counter(
     "sync.messages.shed_quarantined",
     "sync channels skipped in generate_messages because the doc farm has "
@@ -194,8 +200,14 @@ class SyncFarm:
         ``protocols``, when given, aligns with ``channels``: an entry of
         ``"v2"`` routes that channel through range-based reconciliation
         (sync_v2), anything else through the Bloom protocol. One sweep
-        mixes both freely."""
+        mixes both freely.
+
+        Spans on the ambient trace, one per phase of the call: ``sync.plan``
+        (the channel walk and the v2 fingerprint reduction),
+        ``sync.bloom_build``, ``sync.bloom_query`` and ``sync.finish``."""
         n = len(channels)
+        _M_CHANNELS_SWEPT.inc(n)
+        trace = get_trace()
         plans = []
         v2_queries = []  # (doc, lo, hi) across all v2 channels this sweep
         # a doc quarantined by the farm's per-doc isolation must not be
@@ -204,111 +216,116 @@ class SyncFarm:
         # farm will shed anyway. The channel resumes after
         # release_quarantine.
         quarantined = self.farm.quarantine
-        for i, (d, state) in enumerate(channels):
-            if d in quarantined:
-                plans.append({"shed": True})
-                _M_SHED_QUARANTINED.inc()
-                continue
-            if protocols is not None and protocols[i] == "v2":
-                view = self._v2_view(d)
-                our_heads = self.farm.get_heads(d)
-                our_need = self.farm.get_missing_deps(
-                    d, state.get("theirHeads") or []
-                )
-                v2_plan, queries = plan_generate_v2(state, view, our_heads)
-                plans.append({
-                    "v2": True, "plan": v2_plan, "q0": len(v2_queries),
-                    "nq": len(queries), "our_heads": our_heads,
-                    "our_need": our_need,
-                })
-                v2_queries.extend((d, lo, hi) for lo, hi in queries)
-                continue
-            plans.append(self._plan_generate(d, state))
+        with trace.span("sync.plan"):
+            for i, (d, state) in enumerate(channels):
+                if d in quarantined:
+                    plans.append({"shed": True})
+                    _M_SHED_QUARANTINED.inc()
+                    continue
+                if protocols is not None and protocols[i] == "v2":
+                    view = self._v2_view(d)
+                    our_heads = self.farm.get_heads(d)
+                    our_need = self.farm.get_missing_deps(
+                        d, state.get("theirHeads") or []
+                    )
+                    v2_plan, queries = plan_generate_v2(state, view, our_heads)
+                    plans.append({
+                        "v2": True, "plan": v2_plan, "q0": len(v2_queries),
+                        "nq": len(queries), "our_heads": our_heads,
+                        "our_need": our_need,
+                    })
+                    v2_queries.extend((d, lo, hi) for lo, hi in queries)
+                    continue
+                plans.append(self._plan_generate(d, state))
 
-        # all v2 channels' fingerprints — inbound-range checks, median
-        # splits, fresh probes — resolve in one pow2-bucketed device
-        # reduction; each channel then slices its contiguous span back out
-        v2_fps = self.fingerprints.fingerprint_ranges(v2_queries)
+            # all v2 channels' fingerprints — inbound-range checks, median
+            # splits, fresh probes — resolve in one pow2-bucketed device
+            # reduction; each channel then slices its contiguous span back
+            # out
+            v2_fps = self.fingerprints.fingerprint_ranges(v2_queries)
 
         # batched `have` filter construction, pow2-padded in batch and
         # width (the padding is masked: zero-count rows serialise to empty
         # filters)
-        build_idx = [i for i, p in enumerate(plans) if p.get("build_hashes") is not None]
-        if build_idx:
-            lists = [plans[i]["build_hashes"] for i in build_idx]
-            width = _pow2(max((len(h) for h in lists), default=1))
-            xyz, counts = pack_hashes(lists, width=width)
-            pad = _pow2(len(lists)) - len(lists)
-            if pad:
-                xyz = np.concatenate(
-                    [xyz, np.zeros((pad,) + xyz.shape[1:], xyz.dtype)]
+        with trace.span("sync.bloom_build"):
+            build_idx = [i for i, p in enumerate(plans) if p.get("build_hashes") is not None]
+            if build_idx:
+                lists = [plans[i]["build_hashes"] for i in build_idx]
+                width = _pow2(max((len(h) for h in lists), default=1))
+                xyz, counts = pack_hashes(lists, width=width)
+                pad = _pow2(len(lists)) - len(lists)
+                if pad:
+                    xyz = np.concatenate(
+                        [xyz, np.zeros((pad,) + xyz.shape[1:], xyz.dtype)]
+                    )
+                    counts = np.concatenate([counts, np.zeros(pad, counts.dtype)])
+                num_words = int(ceil(width * BITS_PER_ENTRY / WORD_BITS)) or 1
+                words, modulo = build_filters(
+                    self._put(xyz.view(np.int32)), self._put(counts), num_words
                 )
-                counts = np.concatenate([counts, np.zeros(pad, counts.dtype)])
-            num_words = int(ceil(width * BITS_PER_ENTRY / WORD_BITS)) or 1
-            words, modulo = build_filters(
-                self._put(xyz.view(np.int32)), self._put(counts), num_words
-            )
-            blooms = filters_to_bytes(words, modulo, counts)
-            for i, bloom in zip(build_idx, blooms):
-                plans[i]["our_have"] = [
-                    {"lastSync": plans[i]["shared_heads"], "bloom": bloom}
-                ]
+                blooms = filters_to_bytes(words, modulo, counts)
+                for i, bloom in zip(build_idx, blooms):
+                    plans[i]["our_have"] = [
+                        {"lastSync": plans[i]["shared_heads"], "bloom": bloom}
+                    ]
 
         # batched changes-to-send Bloom queries: flatten every channel's
         # (their-filter, candidate-hash) pairs into one [B, C] query
-        query_idx = [i for i, p in enumerate(plans) if p.get("query") is not None]
-        if query_idx:
-            blobs, cand_lists = [], []
-            for i in query_idx:
-                blobs.append(plans[i]["query"]["bloom"])
-                cand_lists.append(plans[i]["query"]["hashes"])
-            words, modulo, counts = filters_from_bytes(blobs)
-            # pow2 shape buckets (batch, candidate width, filter words):
-            # padded rows/slots are masked by counts and never read back
-            batch = _pow2(len(blobs))
-            width = _pow2(max((len(c) for c in cand_lists), default=1))
-            w_words = _pow2(words.shape[1])
-            padded_words = np.zeros((batch, w_words), words.dtype)
-            padded_words[: words.shape[0], : words.shape[1]] = words
-            padded_modulo = np.zeros(batch, modulo.dtype)
-            padded_modulo[: modulo.shape[0]] = modulo
-            padded_counts = np.zeros(batch, counts.dtype)
-            padded_counts[: counts.shape[0]] = counts
-            q, _ = pack_hashes(cand_lists, width=width)
-            q = np.concatenate(
-                [q, np.zeros((batch - q.shape[0],) + q.shape[1:], q.dtype)]
-            )
-            contained = query_filters(
-                self._put(padded_words.view(np.int32)),
-                self._put(padded_modulo), self._put(padded_counts),
-                self._put(q.view(np.int32)),
-            ).cpu().numpy()
-            total_hits = 0
-            for b, i in enumerate(query_idx):
-                hits = {
-                    h
-                    for c, h in enumerate(cand_lists[b])
-                    if contained[b, c]
-                }
-                total_hits += len(hits)
-                plans[i]["bloom_positive"] = hits
-            if _METRICS.enabled:
-                _M_BLOOM_PROBES.inc(
-                    NUM_PROBES * sum(len(c) for c in cand_lists)
+        with trace.span("sync.bloom_query"):
+            query_idx = [i for i, p in enumerate(plans) if p.get("query") is not None]
+            if query_idx:
+                blobs, cand_lists = [], []
+                for i in query_idx:
+                    blobs.append(plans[i]["query"]["bloom"])
+                    cand_lists.append(plans[i]["query"]["hashes"])
+                words, modulo, counts = filters_from_bytes(blobs)
+                # pow2 shape buckets (batch, candidate width, filter words):
+                # padded rows/slots are masked by counts and never read back
+                batch = _pow2(len(blobs))
+                width = _pow2(max((len(c) for c in cand_lists), default=1))
+                w_words = _pow2(words.shape[1])
+                padded_words = np.zeros((batch, w_words), words.dtype)
+                padded_words[: words.shape[0], : words.shape[1]] = words
+                padded_modulo = np.zeros(batch, modulo.dtype)
+                padded_modulo[: modulo.shape[0]] = modulo
+                padded_counts = np.zeros(batch, counts.dtype)
+                padded_counts[: counts.shape[0]] = counts
+                q, _ = pack_hashes(cand_lists, width=width)
+                q = np.concatenate(
+                    [q, np.zeros((batch - q.shape[0],) + q.shape[1:], q.dtype)]
                 )
-                _M_BLOOM_HITS.inc(total_hits)
+                contained = query_filters(
+                    self._put(padded_words.view(np.int32)),
+                    self._put(padded_modulo), self._put(padded_counts),
+                    self._put(q.view(np.int32)),
+                ).cpu().numpy()
+                total_hits = 0
+                for b, i in enumerate(query_idx):
+                    hits = {
+                        h
+                        for c, h in enumerate(cand_lists[b])
+                        if contained[b, c]
+                    }
+                    total_hits += len(hits)
+                    plans[i]["bloom_positive"] = hits
+                if _METRICS.enabled:
+                    _M_BLOOM_PROBES.inc(
+                        NUM_PROBES * sum(len(c) for c in cand_lists)
+                    )
+                    _M_BLOOM_HITS.inc(total_hits)
 
-        results = []
-        for (d, state), plan in zip(channels, plans):
-            if plan.get("v2"):
-                fps = v2_fps[plan["q0"]: plan["q0"] + plan["nq"]]
-                results.append(finish_generate_v2(
-                    state, plan["plan"], fps,
-                    lambda h, d=d: self.farm.get_change_by_hash(d, h),
-                    plan["our_heads"], plan["our_need"],
-                ))
-                continue
-            results.append(self._finish_generate(d, state, plan))
+        with trace.span("sync.finish"):
+            results = []
+            for (d, state), plan in zip(channels, plans):
+                if plan.get("v2"):
+                    fps = v2_fps[plan["q0"]: plan["q0"] + plan["nq"]]
+                    results.append(finish_generate_v2(
+                        state, plan["plan"], fps,
+                        lambda h, d=d: self.farm.get_change_by_hash(d, h),
+                        plan["our_heads"], plan["our_need"],
+                    ))
+                    continue
+                results.append(self._finish_generate(d, state, plan))
         assert len(results) == n
         return results
 
@@ -513,40 +530,47 @@ class SyncFarm:
         (``sync.v2.messages.rejected`` for v2 frames) — and a channel
         whose changes poison its document is handled by the farm's per-doc
         isolation (the doc quarantines, the patch is a no-op, every other
-        channel proceeds)."""
+        channel proceeds).
+
+        Spans on the ambient trace: ``sync.receive_decode`` (the messages'
+        decode) and ``sync.receive_post`` (the per-channel bookkeeping after
+        the batched apply, whose farm phases record beside them)."""
         del protocols  # inbound routing is by payload type byte
         farm = self.farm
+        trace = get_trace()
         decoded = []
         is_v2 = []
         rejected = rejected_v2 = received_v2 = 0
-        for _, _, m in channels_msgs:
-            v2 = bool(m) and m[0] == MESSAGE_TYPE_SYNC_V2
-            is_v2.append(v2)
-            try:
-                decoded.append(
-                    decode_sync_message_v2(m) if v2 else decode_sync_message(m)
+        with trace.span("sync.receive_decode"):
+            for _, _, m in channels_msgs:
+                v2 = bool(m) and m[0] == MESSAGE_TYPE_SYNC_V2
+                is_v2.append(v2)
+                try:
+                    decoded.append(
+                        decode_sync_message_v2(m) if v2
+                        else decode_sync_message(m)
+                    )
+                    received_v2 += v2
+                except (SyncProtocolError, ValueError, TypeError, IndexError):
+                    decoded.append(None)
+                    if v2:
+                        rejected_v2 += 1
+                    else:
+                        rejected += 1
+            if _METRICS.enabled:
+                _M_MSGS_RECV.inc(len(channels_msgs) - rejected - rejected_v2
+                                 - received_v2)
+                _M_REJECTED.inc(rejected)
+                _M2_MSGS_RECV.inc(received_v2)
+                _M2_REJECTED.inc(rejected_v2)
+                _M_BYTES_RECV.inc(sum(
+                    len(m)
+                    for (_, _, m), msg in zip(channels_msgs, decoded)
+                    if msg is not None
+                ))
+                _M_CHANGES_RECV.inc(
+                    sum(len(m["changes"]) for m in decoded if m is not None)
                 )
-                received_v2 += v2
-            except (SyncProtocolError, ValueError, TypeError, IndexError):
-                decoded.append(None)
-                if v2:
-                    rejected_v2 += 1
-                else:
-                    rejected += 1
-        if _METRICS.enabled:
-            _M_MSGS_RECV.inc(len(channels_msgs) - rejected - rejected_v2
-                             - received_v2)
-            _M_REJECTED.inc(rejected)
-            _M2_MSGS_RECV.inc(received_v2)
-            _M2_REJECTED.inc(rejected_v2)
-            _M_BYTES_RECV.inc(sum(
-                len(m)
-                for (_, _, m), msg in zip(channels_msgs, decoded)
-                if msg is not None
-            ))
-            _M_CHANGES_RECV.inc(
-                sum(len(m["changes"]) for m in decoded if m is not None)
-            )
         docs = [d for d, _, _ in channels_msgs]
         live_docs = [
             d for (d, _, _), msg in zip(channels_msgs, decoded)
@@ -570,19 +594,20 @@ class SyncFarm:
             self.last_apply = patches
 
         results = []
-        for (d, state, _), msg, v2 in zip(channels_msgs, decoded, is_v2):
-            if msg is None:
-                results.append((state, None))
-                continue
-            patch = patches[d] if msg["changes"] else None
-            if v2:
-                results.append((
-                    self._post_receive_v2(d, state, msg, before[d]), patch,
-                ))
-            else:
-                results.append(
-                    self._post_receive(d, state, msg, before[d], patch)
-                )
+        with trace.span("sync.receive_post"):
+            for (d, state, _), msg, v2 in zip(channels_msgs, decoded, is_v2):
+                if msg is None:
+                    results.append((state, None))
+                    continue
+                patch = patches[d] if msg["changes"] else None
+                if v2:
+                    results.append((
+                        self._post_receive_v2(d, state, msg, before[d]), patch,
+                    ))
+                else:
+                    results.append(
+                        self._post_receive(d, state, msg, before[d], patch)
+                    )
         return results
 
     def _receive_one(self, d, state, msg, v2=False):

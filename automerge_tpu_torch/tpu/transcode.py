@@ -48,6 +48,11 @@ from ..obs.metrics import get_metrics
 _M_ROWS = get_metrics().counter(
     "transcode.rows", "ops packed into dense rows by BatchTranscoder"
 )
+_M_GATE_ROUNDS = get_metrics().counter(
+    "farm.gate.rounds",
+    "sweeps of the columnar gate's fixpoint loop (gate_verdicts), the last "
+    "one the sweep that found nothing to change",
+)
 
 # Slot ids ride the high bits of the engine's packed int64 merge key
 # (slot << 44 | opid): 63 value bits - 44 opid bits = 19 bits of slot before
@@ -191,7 +196,7 @@ def gate_verdicts(dep_idx, dep_counts):
     unknown = dep_idx == DEP_UNKNOWN
     same_round_ok = dep_idx < owner  # earlier entry satisfies in-round
     batch = np.ones(n, dtype=np.int64)
-    for _ in range(n + 1):
+    for rounds in range(1, n + 2):
         target = batch[np.maximum(dep_idx, 0)]
         dep_batch = np.where(
             in_delivery,
@@ -207,6 +212,7 @@ def gate_verdicts(dep_idx, dep_counts):
         if np.array_equal(new, batch):
             break
         batch = new
+    _M_GATE_ROUNDS.inc(rounds)
     return batch
 
 

@@ -74,7 +74,17 @@ def test_quarantine_gauge_consistent_with_counters_after_midrun_reset(
     twin_pkgs(scenario, monkeypatch)
 
 
+#: the port's phases that the JAX farm's table does not have: the batched
+#: parse inside decode, and the prevalidation between decode and walk
+PORT_ONLY_PHASES = {"decode/decode_parse", "prevalidate"}
+
+
 def test_farm_phases_flow_through_the_shim(monkeypatch):
+    """The JAX package's paths, with their call counts, are recorded twin
+    to twin; the port's paths beyond them must be `PORT_ONLY_PHASES`,
+    each called once."""
+    jax_paths = set()
+
     def scenario(P, rec):
         farm = P.farm(2, capacity=32)
         buf = _stream(P, 1, 4)[0]
@@ -87,7 +97,15 @@ def test_farm_phases_flow_through_the_shim(monkeypatch):
                       "visibility", "patch_assembly"):
             assert phase in d, phase
             assert d[phase]["calls"] == 1
-        rec.value(sorted((path, entry["calls"]) for path, entry in d.items()))
+        if P.is_port:
+            extra = set(d) - jax_paths
+            assert extra == PORT_ONLY_PHASES, extra
+            assert all(d[path]["calls"] == 1 for path in extra)
+        else:
+            assert not PORT_ONLY_PHASES & set(d)
+            jax_paths.update(d)
+        rec.value(sorted((path, entry["calls"]) for path, entry in d.items()
+                         if path in jax_paths))
 
     twin_pkgs(scenario, monkeypatch)
 
