@@ -31,8 +31,8 @@ class DecodeCache:
     change hash is the sha256 of those bytes, so byte-keying IS hash-keying
     without paying the digest on every lookup). Cached values are shared
     between callers — treat them as immutable; callers that need to attach
-    per-delivery state must copy (columnar.decode_change_cached returns a
-    shallow copy per hit for exactly that reason).
+    per-delivery state must copy (columnar.decode_change_cached keeps
+    immutable records and builds a fresh view per hit).
 
     Capacity bounds the working set by entry count; `max_bytes` additionally
     bounds it by the total size of the cached chunk bytes (the key), so a

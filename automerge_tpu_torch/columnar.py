@@ -33,6 +33,7 @@ from .codecs import (
 )
 from .common import parse_op_id
 from .errors import ChecksumError, DecodeError, EncodeError
+from .obs.metrics import get_metrics
 
 # These bytes don't mean anything, they were generated randomly
 # (columnar.js:24); they identify an Automerge binary container.
@@ -748,9 +749,18 @@ _CHANGE_COLUMN_IDS = {cid: name for name, cid in CHANGE_COLUMNS}
 
 
 def ops_from_column_arrays(arrs, actor_ids):
-    """Assembles backend-form change ops from dense column arrays
-    (struct-of-arrays) — the shared back half of the array-at-a-time decode
-    paths (native/codecs.cpp and the vectorized passes in tpu/decode.py).
+    """Backend-form change ops (op dicts) from dense column arrays: the
+    views of ``op_records_from_column_arrays``' records, or None where it
+    defers."""
+    records = op_records_from_column_arrays(arrs, actor_ids)
+    return None if records is None else [record_view(op) for op in records]
+
+
+def op_records_from_column_arrays(arrs, actor_ids):
+    """Assembles a change's op records (see ``change_record``) from dense
+    column arrays (struct-of-arrays) — the shared back half of the
+    array-at-a-time decode paths (native/codecs.cpp and the vectorized
+    passes in tpu/decode.py).
 
     `arrs` maps column names (objActor, objCtr, keyActor, keyCtr, idActor,
     idCtr, action, valLen, chldActor, chldCtr, predNum, predActor, predCtr)
@@ -758,10 +768,11 @@ def ops_from_column_arrays(arrs, actor_ids):
     (bool array), "keyStr" as a ``(blob bytes, offsets int64[n, 2])`` pair
     (``(-1, -1)`` rows are null) and "valRaw" raw bytes. Missing/short
     columns are padded with nulls exactly like the generic decoder chain
-    reading exhausted columns. Returns the op list, or None when the arrays
-    are degenerate for the fast path (the caller falls back to the per-op
-    decoder chain, which raises the canonical error). Output is identical
-    to decode_ops(decode_columns(...)) — differentially tested."""
+    reading exhausted columns. Returns a tuple of op records, or None when
+    the arrays are degenerate for the fast path (the caller falls back to
+    the per-op decoder chain, which raises the canonical error). Their
+    views are identical to decode_ops(decode_columns(...)) —
+    differentially tested."""
     empty_i = np.empty(0, np.int64)
     obj_actor = arrs.get("objActor", empty_i)
     obj_ctr = arrs.get("objCtr", empty_i)
@@ -836,10 +847,10 @@ def ops_from_column_arrays(arrs, actor_ids):
     if used_preds.size and int(used_preds.max()) >= num_actors:
         bad = int(used_preds[used_preds >= num_actors][0])
         raise DecodeError(f"No actor index {bad}")
-    pred_strs = [
+    pred_strs = tuple(
         f"{c}@{actor_ids[a]}"
         for c, a in zip(used_pred_ctr.tolist(), used_preds.tolist())
-    ]
+    )
     pred_counts = np.where(pred_num == NULLS, 0, pred_num)
     pred_bounds = np.zeros(n_rows + 1, np.int64)
     np.cumsum(pred_counts, out=pred_bounds[1:])
@@ -855,8 +866,8 @@ def ops_from_column_arrays(arrs, actor_ids):
     pred_bounds_l = pred_bounds.tolist()
 
     # plain-Python row materialisation: numpy scalar indexing costs more
-    # than the dict build itself at this row count, so columns convert to
-    # lists once and the loop runs on ints
+    # than the record build itself at this row count, so columns convert
+    # to lists once and the loop runs on ints
     obj_actor_l = obj_actor.tolist()
     obj_ctr_l = obj_ctr.tolist()
     key_actor_l = key_actor.tolist()
@@ -904,15 +915,18 @@ def ops_from_column_arrays(arrs, actor_ids):
         act = action_l[i] if action_l[i] != NULLS else None
         act_name = ACTIONS[act] if act is not None and act < num_actions else act
         if elem_id is not None:
-            op = {"obj": obj, "elemId": elem_id, "action": act_name}
+            op = [obj, elem_id, act_name, insert_l[i]]
+            bits = _HAS_ELEM_ID
         else:
-            op = {"obj": obj, "key": ks, "action": act_name}
-        op["insert"] = insert_l[i]
+            op = [obj, ks, act_name, insert_l[i]]
+            bits = 0
         if act_name in ("set", "inc"):
             value, datatype = values[i]
-            op["value"] = value
+            op.append(value)
+            bits |= _HAS_VALUE
             if datatype is not None:
-                op["datatype"] = datatype
+                op.append(datatype)
+                bits |= _HAS_DATATYPE
         cc, ca = chld_ctr_l[i], chld_actor_l[i]
         if (cc == NULLS) != (ca == NULLS):
             raise DecodeError(
@@ -923,10 +937,12 @@ def ops_from_column_arrays(arrs, actor_ids):
         if cc != NULLS:
             if ca >= num_actors:
                 raise DecodeError(f"No actor index {ca}")
-            op["child"] = f"{cc}@{actor_ids[ca]}"
-        op["pred"] = pred_strs[pred_bounds_l[i]:pred_bounds_l[i + 1]]
-        ops.append(op)
-    return ops
+            op.append(f"{cc}@{actor_ids[ca]}")
+            bits |= _HAS_CHILD
+        op.append(pred_strs[pred_bounds_l[i]:pred_bounds_l[i + 1]])
+        op.append(_OP_SHAPES[bits])
+        ops.append(tuple(op))
+    return tuple(ops)
 
 
 _ACTION_SET_IDX = ACTIONS.index("set")
@@ -1127,6 +1143,102 @@ def decode_change(buffer):
 
 
 # ---------------------------------------------------------------------- #
+# decoded-change records: the form the change LRU keeps. A record is a
+# plain tuple whose items are atoms (str, int, float, bool, None, bytes) or
+# plain tuples of the same. CPython's collector untracks such a tuple in a
+# collection that finds every item untracked, one level of nesting a
+# collection, so a record leaves the lists the collector walks within a
+# few young collections of its making, and however many changes the LRU
+# holds, a full collection does not walk them; dicts and lists stay
+# tracked for life. A record holds its field values, then its shape: an
+# int naming its field keys. A change record's fields are the header's,
+# ``deps`` and ``ops`` as tuples; an op record's are the op's, ``pred`` as
+# a tuple.
+
+#: view source of the fields that are not atoms, by key
+_FIELD_VIEWS = {
+    "deps": "list(r[{i}])",
+    "pred": "list(r[{i}])",
+    "ops": "[views[op[-1]](op) for op in r[{i}]]",
+}
+_SHAPES: dict = {}       # field keys -> shape
+_SHAPE_VIEWS: list = []  # shape -> the function building its view
+
+
+def _shape(keys: tuple) -> int:
+    """The shape of records with these field keys, made on first use with
+    its view builder: a lambda whose body is a dict display with constant
+    keys, CPython's fastest dict build (twice as fast as dict(zip()), and
+    a view is built on every hit), compiled from the keys, which are
+    decode_change's field names and never input data."""
+    shape = _SHAPES.get(keys)
+    if shape is None:
+        items = ", ".join(
+            f"{key!r}: " + _FIELD_VIEWS.get(key, "r[{i}]").format(i=i)
+            for i, key in enumerate(keys)
+        )
+        _SHAPE_VIEWS.append(
+            eval(f"lambda r: {{{items}}}", {"views": _SHAPE_VIEWS})
+        )
+        shape = _SHAPES[keys] = len(_SHAPE_VIEWS) - 1
+    return shape
+
+
+_HAS_ELEM_ID, _HAS_VALUE, _HAS_DATATYPE, _HAS_CHILD = 1, 2, 4, 8
+
+#: op record shapes of the array decode, indexed by the _HAS_* bits
+_OP_SHAPES = tuple(
+    _shape(
+        ("obj", "elemId" if bits & _HAS_ELEM_ID else "key", "action",
+         "insert")
+        + (("value",) if bits & _HAS_VALUE else ())
+        + (("datatype",) if bits & _HAS_DATATYPE else ())
+        + (("child",) if bits & _HAS_CHILD else ())
+        + ("pred",)
+    )
+    for bits in range(16)
+)
+
+#: header fields that are no part of a decoded change (decode_change
+#: drops them), and the one a record takes from elsewhere
+_NOT_RECORDED = frozenset(("actorIds", "columns", "ops"))
+
+
+def change_record(header, op_records: tuple) -> tuple:
+    """The change LRU's record of a change: `header` is
+    decode_change_columns' dict or decode_change's (its transport fields
+    and ``ops`` are left out), `op_records` its ops as records."""
+    keys = []
+    values = []
+    for key, value in header.items():
+        if key not in _NOT_RECORDED:
+            keys.append(key)
+            values.append(tuple(value) if key == "deps" else value)
+    keys.append("ops")
+    values.append(op_records)
+    values.append(_shape(tuple(keys)))
+    return tuple(values)
+
+
+def op_record(op: dict) -> tuple:
+    """The record of one op dict of decode_change."""
+    return (*(tuple(v) if k == "pred" else v for k, v in op.items()),
+            _shape(tuple(op)))
+
+
+def record_of_change(change: dict) -> tuple:
+    """The record of decode_change's dict (a chunk the array paths left
+    to the per-op decoder chain)."""
+    return change_record(change, tuple(map(op_record, change["ops"])))
+
+
+def record_view(record: tuple) -> dict:
+    """The dict of a change or op record, as decode_change gives it, every
+    container fresh."""
+    return _SHAPE_VIEWS[record[-1]](record)
+
+
+# ---------------------------------------------------------------------- #
 # decode memoization: a change gossiped to N documents (the farm fans one
 # delivery across a batch) or replayed across sync rounds (sync peers re-
 # derive metadata for every candidate every round) is parsed ONCE. Keyed by
@@ -1149,18 +1261,27 @@ _DECODED_META_CACHE = DecodeCache(
 )
 
 
+_M_VIEWS = get_metrics().counter(
+    "codecs.decode_cache.views",
+    "change dicts built from the change LRU's records (decode_change_cached)",
+)
+
+
 def decode_change_cached(buffer):
     """`decode_change` through the bounded decode LRU.
 
-    Returns a SHALLOW COPY of the cached change dict: callers may attach
-    top-level keys (the farm adds ``change["buffer"]``) but must treat the
-    shared ``ops``/``deps`` values as immutable."""
+    Returns a fresh dict equal to ``decode_change(buffer)``, its ``ops``,
+    op ``pred`` and ``deps`` fresh lists: the LRU keeps the change's record
+    (``change_record``), and every call builds its view anew, so a caller
+    may change what it gets."""
     key = bytes(buffer)
-    change = _DECODED_CHANGE_CACHE.get(key)
-    if change is None:
+    record = _DECODED_CHANGE_CACHE.get(key)
+    if record is None:
         change = decode_change(key)
-        _DECODED_CHANGE_CACHE.put(key, change)
-    return dict(change)
+        _DECODED_CHANGE_CACHE.put(key, record_of_change(change))
+        return change
+    _M_VIEWS.inc()
+    return record_view(record)
 
 
 def decode_change_meta_cached(buffer):

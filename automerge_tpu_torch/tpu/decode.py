@@ -441,19 +441,11 @@ def _vector_change_ops(cols, actor_ids):
     return ops
 
 
-def _finish_change(meta, ops):
-    """decode_change's tail: attach ops, drop the transport fields."""
-    change = dict(meta)
-    change["ops"] = ops
-    del change["actorIds"]
-    del change["columns"]
-    return change
-
-
 def _decode_batch(keys):
     """Decodes a batch of distinct change buffers, sharing ONE varint scan
     across every column of every chunk. Returns one entry per buffer:
-    the decoded change dict, or the exception that buffer raises.
+    the change's record (``columnar.change_record``), built from the
+    column arrays, or the exception that buffer raises.
 
     Chunks the vector pass cannot prove well-formed re-decode through
     columnar.decode_change (native/scalar), which produces the canonical
@@ -503,17 +495,19 @@ def _decode_batch(keys):
                     arrs = _soa_from_columns(
                         varints, strs, raws, local, lambda j: j
                     )
-                ops = columnar.ops_from_column_arrays(arrs, metas[i]["actorIds"])
+                ops = columnar.op_records_from_column_arrays(
+                    arrs, metas[i]["actorIds"])
                 if ops is not None:
                     decoded_chunks += 1
                     decoded_bytes += _count_bytes(varints, strs, raws)
             except Exception:
                 ops = None  # scalar re-decode owns the result AND the error
         if ops is not None:
-            results[i] = _finish_change(metas[i], ops)
+            results[i] = columnar.change_record(metas[i], ops)
         else:
             try:
-                results[i] = columnar.decode_change(buf)
+                results[i] = columnar.record_of_change(
+                    columnar.decode_change(buf))
             except Exception as exc:
                 results[i] = exc
     if decoded_chunks and _M_CHUNKS.enabled:
@@ -531,13 +525,13 @@ def decode_changes_vector(buffers):
     for res in results:
         if isinstance(res, BaseException):
             raise res
-    return results
+    return [columnar.record_view(res) for res in results]
 
 
 def warm_decode_cache(buffers) -> int:
     """Best-effort batched decode of the delivery's cache misses into the
-    shared change LRU (columnar.decode_change_cached then hits for every
-    buffer). Buffers that fail to decode are left uncached — the
+    shared change LRU, as records (columnar.decode_change_cached then hits
+    for every buffer). Buffers that fail to decode are left uncached — the
     per-document delivery path re-raises their exact error inside its own
     fault domain. Returns the number of chunks decoded."""
     _M_LOOKUPS.inc(len(buffers))
