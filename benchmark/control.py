@@ -13,7 +13,9 @@ check must fail it. The benchmark's runs never run it.
 prints, per seed, one JSON line with the check's numbers. In a sync cell
 the control delivers each epoch's changes straight to every other farm
 (an exchange that never loses a change), so only the broken merge
-separates it from the reference (the sync loop's ``ControlDriver``)."""
+separates it from the reference (the sync loop's ``ControlDriver``). A
+loop whose system is no farm builds its own control (``build_control``)
+and is held to its own check."""
 from __future__ import annotations
 
 import argparse
@@ -79,11 +81,16 @@ class ControlFarm:
 
 def control_farms(root=ROOT):
     """A `run.run_cell` ``make_farms`` that builds the loop's farms as
-    `ControlFarm`s."""
+    `ControlFarm`s, or as the loop's own ``build_control(cfg, mix,
+    stream, ref_mod)`` builds them where it has one (a loop whose system
+    is no farm)."""
 
     def make(cfg, mix, stream, device):
         loop = plugins.load(root, "loops", mix["loop"])
         ref_mod = plugins.load(root, "reference", cfg["schema"])
+        own = getattr(loop, "build_control", None)
+        if own is not None:
+            return own(cfg, mix, stream, ref_mod)
         return [ControlFarm(stream, ref_mod)
                 for _ in range(loop.farm_count(stream))], None
 

@@ -10,6 +10,7 @@ program's state inside the window."""
 from __future__ import annotations
 
 import contextlib
+import pickle
 import time
 from typing import NamedTuple
 
@@ -34,6 +35,27 @@ class Snapshot(NamedTuple):
     delivered: list | None
 
 
+class Records:
+    """The driver's snapshots in call order, each kept pickled. Bytes are
+    not on the collector's heap: a full collection in the window walks
+    none of the harness's record of every patch, only the program's
+    objects, and a record keeps nothing of the program's alive. Iterates
+    as `Snapshot`s."""
+
+    def __init__(self):
+        self._blobs: list[bytes] = []
+
+    def append(self, snap: Snapshot) -> None:
+        self._blobs.append(pickle.dumps(tuple(snap), pickle.HIGHEST_PROTOCOL))
+
+    def __iter__(self):
+        for blob in self._blobs:
+            yield Snapshot(*pickle.loads(blob))
+
+    def __len__(self) -> int:
+        return len(self._blobs)
+
+
 def synchronize(device) -> None:
     import torch
 
@@ -55,7 +77,8 @@ class Driver:
         self.device = device
         self.pos = 0
         self.in_window = False
-        self.records: list[Snapshot] = []
+        self.tracing = False     # steps run under the device trace
+        self.records = Records()
         self.index = stream.changes.by_author()
         self.known = {}          # (farm, doc) -> {actor: seq}
         self.quarantined = []    # (farm, doc, [change index]) lost

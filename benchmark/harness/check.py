@@ -40,6 +40,9 @@ class CheckResult:
         self.unquiesced = 0
         self.patches = 0
         self.states = 0
+        # what the run attempted; a loop's own check sets it (run.py
+        # counts the changes made for the farm loops' check)
+        self.attempted = None
         self.notes: list[str] = []
 
     def note(self, text):

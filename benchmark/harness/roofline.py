@@ -1,6 +1,7 @@
 """Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at the full 700 W
-power limit) and the least time of the two Bloom kernels, frozen copies of
-``chip_smoke.build_bound`` and ``query_bound``.
+power limit), the least time of the two Bloom kernels, frozen copies of
+``chip_smoke.build_bound`` and ``query_bound``, and the bytes the dense
+engine's merge and visibility pass must move.
 
 A bound counts each input byte read once and each output byte written
 once, and the operations the probes need, for the live entries only;
@@ -34,3 +35,35 @@ def query_bound_ms(batch: int, num_words: int, cands: int, counts) -> float:
     live = sum(1 for c in counts if int(c) > 0)
     nbytes = batch * 8 + live * (num_words * 4 + cands * 12) + batch * cands
     return _least_ms(nbytes, live * cands * NUM_PROBES * PROBE_OPS_QUERY)
+
+
+# the dense engine's rows (tpu/engine.py's BatchedDocState): key 4, op 8,
+# action 4, value 8, pred 8, overwritten 1; a change row: the first five
+DENSE_ROW_BYTES = 33
+DENSE_CHANGE_BYTES = 32
+# a visibility pass reads key, op, action, value and overwritten of a row
+# (a pred only for an increment, which the dense traffic has none of) and
+# writes visible 1, winner 1 and value_total 8; it hands back the state's
+# own key and op
+VISIBLE_READ_BYTES = 25
+VISIBLE_WRITE_BYTES = 10
+
+
+def least_ms(nbytes) -> float:
+    """The least time to move `nbytes` through the card's memory."""
+    return _least_ms(nbytes, 0)
+
+
+def dense_merge_bytes(held: int, new: int) -> int:
+    """One ``batched_apply_ops`` of `new` change rows into documents that
+    hold `held` rows (both summed over the documents): the live rows read,
+    the live rows after it written (the table stays sorted, so the rows
+    behind an insert move), the change rows read. Padding is not
+    counted."""
+    return (2 * held + new) * DENSE_ROW_BYTES + new * DENSE_CHANGE_BYTES
+
+
+def dense_visibility_bytes(rows: int) -> int:
+    """One ``batched_visible_state`` over documents holding `rows` live
+    rows (summed over the documents)."""
+    return rows * (VISIBLE_READ_BYTES + VISIBLE_WRITE_BYTES)

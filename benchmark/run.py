@@ -13,7 +13,8 @@ from the root of a checkout. The cell, its configuration
 (``harness/plugins.py``). Set-up makes the stream from the seed, builds the
 cell's system and runs the traffic's warm-up steps; the window then runs
 whole steps until ``--seconds`` have passed and ends at a synchronize.
-After it, every answer of the window is held to the plain reference.
+After it, every answer of the window is held to the plain reference: by
+``harness/check.py``, or by the loop's own ``check`` where it has one.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
@@ -147,7 +148,13 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
              root=ROOT, plant=None, make_farms=None, driver_cls=None,
              steps=None):
     """One run of cell `name`. Returns (result dict, check result, info
-    dict). `plant(farms, syncs)`, when given, is called once the farms are
+    dict). A loop module that defines ``check(ref_mod, stream, driver,
+    finals)`` judges its own runs with it (a ``CheckResult`` of
+    ``harness/check.py`` with ``attempted`` set); a driver that has
+    ``readings()`` hands the metric readers its dict under ``"loop"``, and
+    one that has ``end_to_end(window_s)`` adds the end-to-end values of
+    its own metrics.
+    `plant(farms, syncs)`, when given, is called once the farms are
     built (the fault tests plant faults with it); `make_farms` and
     `driver_cls` stand in for the loop's ``build`` and ``Driver`` (the
     control puts the reference in the program's place with them).
@@ -218,9 +225,18 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
     made = set(driver.made)
-    result_check = output_check.check(ref_mod, stream, driver.records,
-                                      finals, made, driver.quarantined,
-                                      driver.unquiesced)
+    own_check = getattr(loop, "check", None)
+    if own_check is None:
+        result_check = output_check.check(ref_mod, stream, driver.records,
+                                          finals, made, driver.quarantined,
+                                          driver.unquiesced)
+        attempted = len(made)
+    else:
+        result_check = own_check(ref_mod, stream, driver, finals)
+        attempted = result_check.attempted
+        if attempted is None:
+            raise ValueError(f"loop {mix['loop']!r}: its check set no "
+                             "'attempted'")
     check_s = time.perf_counter() - t_check
 
     info = {
@@ -250,6 +266,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
                             profile.totals_by_name().items()}
                            if profile is not None else {}),
                 "trace": device_trace.result}
+    if hasattr(driver, "readings"):
+        readings["loop"] = driver.readings()
     metrics = {}
     if trace:
         for m in spec["per_layer"]:
@@ -266,6 +284,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
             "sync_bytes_per_change": (driver.sync_bytes / len(made)
                                       if made else None),
         }
+        if hasattr(driver, "end_to_end"):
+            values.update(driver.end_to_end(window_s))
         for m in spec["end_to_end"]:
             if _applies(m, cell) and values.get(m["name"]) is not None:
                 metrics[m["name"]] = {"value": values[m["name"]],
@@ -273,7 +293,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
            "count": cell["chips"], "memory_peak_bytes": peak}
-    result = {"correct": result_check.correct, "attempted": len(made),
+    result = {"correct": result_check.correct, "attempted": attempted,
               "failed": result_check.failed, "metrics": metrics,
               "device": dev}
     if trace and device_trace.result is not None:

@@ -23,6 +23,10 @@ TINY = {
                                  "incs_per_change": 8},
     "traffic/sync-epochs-16.json": {"steps": 12},
     "traffic/ingest-flush-64.json": {"dirty_docs": 8, "steps": 40},
+    "configs/dense-100k.json": {"docs": 64, "ops_per_doc": 32,
+                                "rows_per_doc": 48, "keys": 6, "actors": 4},
+    "traffic/dense-fill-80.json": {"rows_per_round": 6, "sample_docs": 8,
+                                   "visibility_every": 2, "epochs": 16},
 }
 CELLS = ("map-sync-128", "counter-64a", "map-ingest-1k")
 #: window steps of a tiny run (the CPU tests end windows by steps)

@@ -19,7 +19,7 @@ def _run(cell, trace, seconds=5):
 
 @pytest.mark.card
 @pytest.mark.parametrize("cell", ["map-sync-128", "counter-64a",
-                                  "map-ingest-1k"])
+                                  "map-ingest-1k", "dense-100k"])
 def test_a_cell_runs_correct_on_the_card(card, cell):
     result = _run(cell, 0)
     assert result["correct"], result["checks"]
@@ -34,3 +34,14 @@ def test_a_traced_sync_run_reads_the_bloom_kernels(card):
     assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
     for name in ("bloom_build_roofline", "bloom_query_roofline"):
         assert 0 < result["metrics"][name]["value"] <= 100
+
+
+@pytest.mark.card
+def test_a_traced_dense_run_reads_the_merge_by_range(card):
+    result = _run("dense-100k", 1, seconds=10)
+    assert result["correct"], result["checks"]
+    metrics = {k: m["value"] for k, m in result["metrics"].items()}
+    for name in ("dense.merge_roofline", "dense.visibility_roofline"):
+        assert 0 < metrics[name] <= 100
+    assert metrics["dense.device_ops_per_merge"] > 1
+    assert metrics["dense.upload_ms_per_round"] > 0

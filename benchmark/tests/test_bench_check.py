@@ -51,6 +51,27 @@ def test_result_line_has_the_contracts_keys(tiny_root, trace):
         assert set(m) == {"value", "unit"}
 
 
+def test_the_records_are_off_the_collectors_heap():
+    """A record is pickled when it is made: the collector tracks none,
+    later changes to the patch do not reach it, and it reads back as the
+    snapshot it was."""
+    import gc
+
+    from harness import cells
+
+    props = {"f0": {"1@aa": {"type": "value", "value": "x"}}}
+    clock = {"aa": 1}
+    records = cells.Records()
+    records.append(cells.Snapshot(0, 3, clock, ["h"], 1, 0, props, [5]))
+    props["f0"]["1@aa"]["value"] = "changed"
+    clock["aa"] = 2
+    assert len(records) == 1
+    assert not any(gc.is_tracked(blob) for blob in records._blobs)
+    assert list(records) == [cells.Snapshot(
+        0, 3, {"aa": 1}, ["h"], 1, 0,
+        {"f0": {"1@aa": {"type": "value", "value": "x"}}}, [5])]
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails_the_check(tiny_root, cell):
     result, check, _ = _run(tiny_root, cell,

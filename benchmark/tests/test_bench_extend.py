@@ -88,6 +88,9 @@ def test_a_fourth_cell_needs_only_new_files_and_entries(tmp_path):
         "name": "map-per-replica-uniform", "config": "ycsb-a-8r-uniform",
         "traffic": "per-replica-4", "chips": 1,
         "why": "each replica's updates in a call of their own"})
+    # a farm cell reports the farms' rate: it joins that metric's cells
+    next(m for m in spec["end_to_end"] if m["name"] == "merged_ops_per_s")[
+        "workloads"].append("map-per-replica-uniform")
     spec["per_layer"].append({
         "name": "farm.pack_us_per_row", "unit": "us/row", "better": "lower",
         "source": "program_span", "layer": "pack",
