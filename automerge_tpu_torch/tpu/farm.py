@@ -207,6 +207,12 @@ _M_OCCUPANCY = _METRICS.histogram(
 _M_WALKS = _METRICS.counter(
     "farm.exact.walks", "documents served by the embedded reference walk"
 )
+_M_WALK_OPS = _METRICS.counter(
+    "farm.walk.ops", "ops of the changes handed to the embedded reference walk"
+)
+_M_RANKED = _METRICS.counter(
+    "farm.rga.elems_ranked", "list elements put in order by the RGA rank"
+)
 _M_FB_CALLS = _METRICS.counter(
     "farm.fallback.calls",
     "apply_changes calls that lost the batched device path mid-dispatch",
@@ -804,6 +810,7 @@ class TorchDocFarm:
             torch.from_numpy(parent).to(dev), torch.from_numpy(opid).to(dev),
             valid, torch.from_numpy(rank).to(dev),
         )
+        _M_RANKED.inc(n)
         return ranks[0, :n].cpu().numpy()
 
     def _actor_rank(self):
@@ -1257,7 +1264,10 @@ class TorchDocFarm:
         change log and queue, so the walk's state matches the farm's
         exactly from this call onward."""
         if self.exact[d] is None:
-            self.exact[d] = replay_walk(self.changes[d], self.queue[d])
+            from ..profiling import get_profile
+
+            with get_profile().span("walk_replay"):
+                self.exact[d] = replay_walk(self.changes[d], self.queue[d])
         return self.exact[d]
 
     @staticmethod
@@ -1344,7 +1354,9 @@ class TorchDocFarm:
         device_dispatch -> fallback_walk (only after a failed dispatch) ->
         visibility (host mirror merge + scoped device readback of stale
         spans) -> patch_assembly (vectorized over the mirror); prevalidate
-        between decode and walk, decode_parse inside decode."""
+        between decode and walk, decode_parse inside decode, walk_replay
+        (the walk's first bootstrap from the log) and walk_apply (the
+        embedded OpSet's apply) inside walk."""
         from ..profiling import get_profile
 
         if isolation not in ("doc", "batch"):
@@ -1489,9 +1501,11 @@ class TorchDocFarm:
                 ):
                     try:
                         self._ensure_exact(d)
-                        exact_patches[d] = self.exact[d].apply_changes(
-                            [c["buffer"] for c in decoded], is_local
-                        )
+                        with prof.span("walk_apply"):
+                            exact_patches[d] = self.exact[d].apply_changes(
+                                [c["buffer"] for c in decoded], is_local
+                            )
+                        _M_WALK_OPS.inc(sum(len(c["ops"]) for c in decoded))
                     except Exception as exc:
                         if not doc_mode:
                             raise
@@ -2849,6 +2863,16 @@ class TorchDocFarm:
     # whole-document patch (getPatch, new.js:2052)
 
     def get_patch(self, d: int):
+        """Doc `d`'s whole-document patch, recorded on the ambient
+        PhaseProfile as the phase ``whole_patch``, with the device RGA
+        rank of its list elements inside it as ``rga_rank``."""
+        from ..profiling import get_profile
+
+        prof = get_profile()
+        with prof.phase("whole_patch"):
+            return self._whole_patch(d, prof)
+
+    def _whole_patch(self, d: int, prof):
         # degraded docs lost device rows to a failed dispatch; their
         # embedded walk is authoritative for whole-doc reads too
         if d in self.degraded and self.exact[d] is not None:
@@ -2856,7 +2880,10 @@ class TorchDocFarm:
         # whole-doc reads ride the same mirror: only this doc's stale
         # spans (if any) cross the device boundary
         self._refresh_visibility([d])
-        ranks = self._element_ranks(d) if int(self.num_elems[d]) > 0 else None
+        ranks = None
+        if int(self.num_elems[d]) > 0:
+            with prof.span("rga_rank"):
+                ranks = self._element_ranks(d)
         patches = {"_root": _empty_object_patch("_root", "map")}
         list_objects = set()
         slots_here = np.unique(self._vis_key[d]).tolist()
