@@ -22,6 +22,7 @@ _PKG = Path(__file__).resolve().parent
 SOURCES = {
     "bloom": _PKG / "csrc" / "bloom.cu",
     "leb128": _PKG / "csrc" / "leb128.cu",
+    "dense_merge": _PKG / "csrc" / "dense_merge.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [

@@ -29,7 +29,11 @@ These programs are plain XLA in the JAX package (no Pallas kernel), so
 plain PyTorch ops are their port: stable argsort, ``searchsorted``,
 ``gather``, ``cummax``/``cummin`` and an int64 ``scatter_add_``. Where JAX
 semantics differ from torch's they are reproduced explicitly (stable sorts,
-clamped gathers, ``side="right"`` searches).
+clamped gathers, ``side="right"`` searches). One exception: on the card
+the dense merge (``batched_apply_ops``) is one hand-written CUDA kernel,
+``csrc/dense_merge.cu`` (``merge_kernels.py``), held bit for bit to
+``merge_docs``, which stays the plain version, the CPU path and the paged
+path's merge.
 
 Lamport opIds are packed into one int64 as ``counter << 20 | actor_num``,
 which preserves (counter, actor) order for up to 2^20 actors.
@@ -46,6 +50,7 @@ from ..obs.metrics import get_metrics
 from ..obs.prof import get_observatory
 from ..testing.faults import fire as _fault_point
 from .jitprof import profiled_program
+from .merge_kernels import dense_merge
 
 PAD_KEY = 2**31 - 1  # int32 max
 ACTOR_BITS = 20
@@ -279,9 +284,12 @@ def merge_docs(s_key, s_op, s_action, s_value, s_pred, s_over,
     return out_key, out_op, out_action, out_value, out_pred, out_over
 
 
-@profiled_program("engine.apply_ops")
-def _apply_ops(state: BatchedDocState,
-               changes: ChangeOpsBatch) -> BatchedDocState:
+def apply_ops_plain(state: BatchedDocState,
+                    changes: ChangeOpsBatch) -> BatchedDocState:
+    """The plain version of the dense merge: ``merge_docs`` over the whole
+    table, then the merged columns copied into the state and the real
+    change rows added to ``num_ops``. ``batched_apply_ops`` runs it for a
+    state on the CPU; on the card it is what the kernel is held to."""
     merged = merge_docs(*state[:6], *changes)
     # JAX donates the state (donate_argnums=(0,)): here the merged
     # columns are written into the state's own tensors in place
@@ -291,13 +299,23 @@ def _apply_ops(state: BatchedDocState,
     return state
 
 
+@profiled_program("engine.apply_ops")
+def _apply_ops(state: BatchedDocState,
+               changes: ChangeOpsBatch) -> BatchedDocState:
+    if state.key.device.type == "cpu":
+        return apply_ops_plain(state, changes)
+    return dense_merge(state, changes)
+
+
 def batched_apply_ops(state: BatchedDocState,
                       changes: ChangeOpsBatch) -> BatchedDocState:
-    """applyChanges over a whole document batch: ``merge_docs`` over the
-    dense state, one ``engine.apply_ops`` dispatch. Updates `state` in
-    place and returns it. Change rows that land past the capacity are
-    dropped, as the JAX program drops them, and still count in
-    ``num_ops``."""
+    """applyChanges over a whole document batch, one ``engine.apply_ops``
+    dispatch: on the card one launch of the dense merge kernel
+    (``merge_kernels.dense_merge``, which raises on what it does not
+    take), on the CPU the plain version (``apply_ops_plain``). Updates
+    `state` in place and returns it. Change rows that land past the
+    capacity are dropped, as the JAX program drops them, and still count
+    in ``num_ops``."""
     return _dispatch(_apply_ops, state, changes)
 
 

@@ -21,7 +21,10 @@ package's ``sync.*`` and ``pallas.*`` counts together.
 JAX program (``automerge_tpu/``)       port (``automerge_tpu_torch/``)
 =====================================  ==========================================
 ``engine.apply_ops`` (engine.py:248)   ``engine.batched_apply_ops`` (the dense
-                                       whole-state merge; ``engine.merge_docs``,
+                                       whole-state merge: on the card the
+                                       kernel of ``csrc/dense_merge.cu``,
+                                       which has no ``kernel.*`` program of
+                                       its own; ``engine.merge_docs``,
                                        the batched merge, also runs inside
                                        ``paging.apply_ops`` and
                                        ``paging.probe_ops``). The JAX

@@ -162,13 +162,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    8 ``batched_apply_ops`` and one ``batched_visible_state`` timed to a
    synchronize (ops/s); (b) the same at ``BASELINE.json``'s 100k-doc
    batch (100,000 docs), with the peak device memory.
-   Each run's ``engine.apply_ops`` dispatches must equal the merges
-   issued, and its first 256 docs must equal a CPU run on those docs in
-   all 7 state and 5 visibility columns. Then a ``BatchTranscoder`` +
-   ``BatchedMapEngine`` round of 64 docs (nested maps, tables, counters)
-   must decode to the same documents on the card as on the CPU, and
-   ``python -m automerge_tpu_torch.analysis`` must exit 0. No kernel runs
-   on this path: the dense merge is plain torch, as the JAX one is XLA.
+   Each run's ``engine.apply_ops`` dispatches and dense merge kernel
+   launches (``csrc/dense_merge.cu``) must equal the merges issued, and
+   its first 256 docs must equal a CPU run (the plain version) on those
+   docs in all 7 state and 5 visibility columns. (c) The kernel on the
+   dense-100k cell's own traffic (12,500 docs x 14,000 rows, 80 change
+   rows a round drawn by ``benchmark/schemas/dense.py``: markers, hides
+   inside a round): equal to the plain version on the card in all 7
+   columns after every round up to ~9,900 live rows a doc, and timed
+   against it and its live-row bound at ~5,000 and ~9,900
+   (``run_dense_cell_kernel``); its timings and launches are the kernel
+   table's ``dense_merge`` row. Then a
+   ``BatchTranscoder`` + ``BatchedMapEngine`` round of 64 docs (nested
+   maps, tables, counters) must decode to the same documents on the card
+   as on the CPU, and ``python -m automerge_tpu_torch.analysis`` must exit
+   0.
 21. the per-document fault domains: (a) ``bench.py --faults``'s
    degradation curve at 1,024 docs, one actor's stream of 8 rounds x one
    64-op change delivered to every doc with ``quarantine_threshold=None``
@@ -3232,6 +3240,13 @@ def run_mesh_phase(args, table, card, device):
 # 100k-doc batch at the same per-doc shape
 DENSE_DOCS, DENSE_BIG_DOCS, DENSE_ROUNDS, DENSE_OPS = 8192, 100_000, 8, 64
 DENSE_KEYS = 64
+# phase 20 (c): the dense-100k cell (its configuration and traffic, whose
+# generator draws the rounds), the live rows a doc at which the kernel is
+# timed, and the timed calls of the kernel and of the plain version
+DENSE_CELL_CONFIG = os.path.join("benchmark", "configs", "dense-100k.json")
+DENSE_CELL_TRAFFIC = os.path.join("benchmark", "traffic", "dense-fill-80.json")
+DENSE_CELL_HELD = (5_000, 9_900)
+DENSE_KERNEL_CALLS, DENSE_PLAIN_CALLS = 20, 5
 # phase 20: docs each run's card rows are held against a CPU run on; the
 # BatchTranscoder round's docs, rounds and ops per change
 DENSE_CHECK_DOCS, TRANSCODER_DOCS, TRANSCODER_ROUNDS, TRANSCODER_OPS = (
@@ -3254,6 +3269,14 @@ def dense_batches(docs, rounds, ops, seed):
         out.append((keys, op, np.zeros((docs, ops), np.int32), values,
                     np.full((docs, ops), -1, np.int64)))
     return out
+
+
+def dense_live_bytes(held, new):
+    """The bytes a dense merge needs, live rows only, as the benchmark's
+    ``harness/roofline.py`` counts them: `held` live rows read, `held` +
+    `new` written at 33 B, `new` change rows read at 32 B (both summed
+    over the documents)."""
+    return (2 * held + new) * 33 + new * 32
 
 
 def dense_bound_ms(docs, capacity, rounds, ops):
@@ -3297,8 +3320,10 @@ def dense_breakdown(device, batches, capacity, top=6):
     """One torch.profiler trace of phase 20's timed work on a fresh state
     (the merges of the staged batches and one visibility pass, ending in a
     synchronize), for the record: the host clock, the device's busy time
-    and idle share, its op count and the device ops that take most of it.
-    None, with the reason logged, when the profiler fails."""
+    and idle share, its op count and the device ops that take most of it,
+    with the dense merge kernel's launches and time apart
+    (``merge_kernel``). None, with the reason logged, when the profiler
+    fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3321,7 +3346,7 @@ def dense_breakdown(device, batches, capacity, top=6):
     except Exception as exc:  # noqa: BLE001 - a record, not a check
         log(f"  dense breakdown: the profiler failed: {exc!r}")
         return None
-    ops, launches = {}, 0
+    ops, launches, kernel = {}, 0, {"launches": 0, "ms": 0.0}
     for evt in events:
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
@@ -3330,9 +3355,13 @@ def dense_breakdown(device, batches, capacity, top=6):
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         ops[evt.key] = ops.get(evt.key, 0.0) + dev_us / 1e3
         launches += evt.count
+        if "dense_merge_kernel" in evt.key:
+            kernel["launches"] += evt.count
+            kernel["ms"] += dev_us / 1e3
     busy = sum(ops.values())
     return {
         "wall_ms": wall_ms, "device_ms": busy, "device_ops": launches,
+        "merge_kernel": kernel,
         "device_idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
         "top": [[name[:72], ms, ms / busy if busy else None]
                 for name, ms in sorted(ops.items(), key=lambda kv: -kv[1])
@@ -3461,22 +3490,154 @@ def run_transcoder(device, stream, counters, capacity=64, tpu=None):
     ]
 
 
-def run_dense_phase(args, card, device):
-    """Phase 20 (see the module docstring)."""
+def time_dense_merge(apply, base, scratch, changes, calls):
+    """Device ms of one ``apply(scratch, changes)``, the median of `calls`,
+    each on a fresh copy of the state `base` in `scratch` (the copy is not
+    timed): CUDA events on the current stream around the call."""
+    import torch
+
+    times = []
+    for _ in range(calls):
+        for s, b in zip(scratch, base):
+            s.copy_(b)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        apply(scratch, changes)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def dense_cell_epoch(device, seed):
+    """The dense-100k cell's configuration and one epoch of its traffic,
+    drawn on `device` from `seed` by the cell's own generator
+    (``benchmark/schemas/dense.py``: ``Epoch``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    bench = os.path.join(root, "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness import plugins
+
+    with open(os.path.join(root, DENSE_CELL_CONFIG)) as fh:
+        cfg = json.load(fh)
+    with open(os.path.join(root, DENSE_CELL_TRAFFIC)) as fh:
+        mix = json.load(fh)
+    schema = plugins.load(root, "schemas", cfg["schema"])
+    return cfg, schema.Epoch(cfg, mix, seed).draw(device)
+
+
+def run_dense_cell_kernel(device, card, seed, held_at=DENSE_CELL_HELD):
+    """Phase 20 (c): the dense merge kernel on the dense-100k cell's
+    traffic (`dense_cell_epoch`: 12,500 docs x 14,000 rows, 80 change rows
+    a round). Rounds merge into a kernel state and a plain-version state
+    (``engine.apply_ops_plain``), which must be equal in all 7 columns
+    after every round. When the live rows a document first reach each of
+    `held_at`, both are timed on that round (``time_dense_merge``: the
+    kernel ``DENSE_KERNEL_CALLS`` times, the plain version
+    ``DENSE_PLAIN_CALLS``) beside the live-row bound, with the launch
+    counts set to 0 just before each and read just after. Returns one row
+    a held count."""
+    import torch
+
+    from automerge_tpu_torch.tpu import engine, merge_kernels
+
+    t0 = time.perf_counter()
+    cfg, epoch = dense_cell_epoch(device, seed)
+    docs, rows, width = cfg["docs"], cfg["rows_per_doc"], epoch.width
+    draw_s = time.perf_counter() - t0
+    kern = engine.make_empty_state(docs, rows, device=device)
+    plain = engine.make_empty_state(docs, rows, device=device)
+    scratch = engine.make_empty_state(docs, rows, device=device)
+    targets, out = list(held_at), []
+    merged = 0
+    for r, batch in enumerate(epoch.rounds):
+        if not targets:
+            break
+        changes = engine.changes_from_numpy(*batch, device=device)
+        held = int((kern.key != engine.PAD_KEY).sum())
+        if held >= targets[0] * docs:
+            targets.pop(0)
+            new = int((changes.key != engine.PAD_KEY).sum())
+            merge_kernels.reset_launch_counts()
+            kernel_ms = time_dense_merge(engine.batched_apply_ops, plain,
+                                         scratch, changes, DENSE_KERNEL_CALLS)
+            launches = merge_kernels.LAUNCHES["dense_merge"] \
+                / DENSE_KERNEL_CALLS
+            merge_kernels.reset_launch_counts()
+            plain_ms = time_dense_merge(engine.apply_ops_plain, plain,
+                                        scratch, changes, DENSE_PLAIN_CALLS)
+            if merge_kernels.LAUNCHES["dense_merge"]:
+                raise RuntimeError("phase 20 (c): the plain version launched "
+                                   "the dense merge kernel")
+            bound_ms = dense_live_bytes(held, new) / HBM_BYTES_PER_S * 1e3
+            out.append({"docs": docs, "rows": rows, "width": width,
+                        "round": r, "held_per_doc": held / docs,
+                        "new_per_doc": new / docs, "ms": kernel_ms,
+                        "bound_ms": bound_ms,
+                        "roofline_pct": 100 * bound_ms / kernel_ms,
+                        "plain_ms": plain_ms, "launches": launches})
+        engine.batched_apply_ops(kern, changes)
+        engine.apply_ops_plain(plain, changes)
+        merged += 1
+        for name, a, b in zip(("key", "op", "action", "value", "pred",
+                               "overwritten", "num_ops"), kern, plain):
+            if not torch.equal(a, b):
+                raise RuntimeError(
+                    f"phase 20 (c): column {name} differs between the kernel "
+                    f"and the plain version after round {r} at {docs} docs")
+    if targets:
+        raise RuntimeError(f"phase 20 (c): never reached {targets} live rows "
+                           f"a document")
+    for row in out:
+        log(f"phase 20 (c) dense merge kernel on the dense-100k cell's "
+            f"traffic, card {card}: {json.dumps(row)}")
+    log(f"  kernel and plain version equal in all 7 columns after each of "
+        f"{merged} rounds (rounds drawn in {draw_s:.3f} s; "
+        f"{time.perf_counter() - t0:.3f} s)")
+    del kern, plain, scratch, epoch
+    return out
+
+
+def dense_kernel_row(cell, launched):
+    """The dense merge kernel's row of the kernel table: phase 20 (c)'s
+    timings at its first held count, the later one under ``late``, and the
+    launches of (a) and (b) under their tags."""
+    def timing(row):
+        return {k: row[k] for k in ("ms", "bound_ms", "plain_ms",
+                                    "launches", "roofline_pct")} | {
+            "shape": {k: row[k] for k in ("docs", "rows", "width",
+                                          "held_per_doc", "new_per_doc")}}
+
+    return {"name": "dense_merge", "route": "cuda",
+            "source": "automerge_tpu_torch/csrc/dense_merge.cu",
+            "replaces": None,
+            "program": "automerge_tpu/tpu/engine.py:181 (XLA engine.apply_ops)",
+            "max_abs_err": 0, **timing(cell[0]), "bound_by": "bytes",
+            "library_ms": None, "late": timing(cell[-1]),
+            **{tag: {"launches": n} for tag, n in launched.items()}}
+
+
+def run_dense_phase(args, table, card, device):
+    """Phase 20 (see the module docstring); adds the dense merge kernel's
+    row to the kernel `table`."""
     import torch
 
     from automerge_tpu_torch.obs.prof import enabled_observatory, \
         get_observatory
+    from automerge_tpu_torch.tpu import merge_kernels
 
     t_phase = time.perf_counter()
     capacity = DENSE_ROUNDS * DENSE_OPS
     obs = get_observatory()
-    rates = {}
+    rates, launched_by = {}, {}
     for tag, docs in (("a", DENSE_DOCS), ("b", DENSE_BIG_DOCS)):
         t0 = time.perf_counter()
         batches = dense_batches(docs, DENSE_ROUNDS, DENSE_OPS, args.seed)
         gen_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
+        merge_kernels.reset_launch_counts()
         with enabled_observatory():
             obs.reset()
             state, vis, elapsed = run_dense(device, batches, capacity)
@@ -3484,11 +3645,14 @@ def run_dense_phase(args, card, device):
             visible = obs.program("engine.visible_cmp").dispatches
             obs.reset()
         peak = torch.cuda.max_memory_allocated()
-        if applied != DENSE_ROUNDS + 1 or visible != 2:
+        launched = launched_by[f"dense_{tag}"] = \
+            merge_kernels.LAUNCHES["dense_merge"]
+        if applied != DENSE_ROUNDS + 1 or visible != 2 or launched != applied:
             raise RuntimeError(
                 f"phase 20 ({tag}): {applied} engine.apply_ops and {visible} "
-                f"engine.visible_cmp dispatches for {DENSE_ROUNDS + 1} merges "
-                f"and 2 visibility passes issued")
+                f"engine.visible_cmp dispatches and {launched} dense merge "
+                f"kernel launches for {DENSE_ROUNDS + 1} merges and 2 "
+                f"visibility passes issued")
         total = docs * DENSE_ROUNDS * DENSE_OPS
         num_ops = state.num_ops.cpu().numpy()
         if not (num_ops == DENSE_ROUNDS * DENSE_OPS).all():
@@ -3515,7 +3679,8 @@ def run_dense_phase(args, card, device):
             f"bytes bound {bound:.4f} ms ({elapsed * 1e3 / bound:.1f}x); "
             f"{winners} winning rows; peak device memory {peak} B "
             f"({peak / 2**30:.3f} GiB); batches drawn in {gen_s:.3f} s; "
-            f"engine.apply_ops dispatches {applied} = merges issued "
+            f"engine.apply_ops dispatches {applied} = dense merge kernel "
+            f"launches = merges issued "
             f"(warm-up included); first {n} docs equal to a CPU run, all 12 "
             f"columns ({check_s:.3f} s)")
         del state, vis
@@ -3523,6 +3688,8 @@ def run_dense_phase(args, card, device):
         if trace is not None:
             log(f"  trace (torch.profiler, one more run): {json.dumps(trace)}")
         del batches
+    cell = run_dense_cell_kernel(device, card, args.seed)
+    table["kernels"].append(dense_kernel_row(cell, launched_by))
     # the engine-level API: BatchTranscoder + BatchedMapEngine, card vs CPU
     t0 = time.perf_counter()
     stream, counters = transcoder_stream(TRANSCODER_DOCS, TRANSCODER_ROUNDS,
@@ -3548,7 +3715,10 @@ def run_dense_phase(args, card, device):
         f"{lint.stdout.strip().splitlines()[-1]} "
         f"({time.perf_counter() - t0:.3f} s)")
     log(f"  whole phase {time.perf_counter() - t_phase:.3f} s; "
-        f"ops/s (a) {rates['a']:.1f}, (b) {rates['b']:.1f}")
+        f"ops/s (a) {rates['a']:.1f}, (b) {rates['b']:.1f}; dense merge "
+        f"kernel ms a call (c) " + ", ".join(
+            f"{row['ms']:.4f} at {row['held_per_doc']:.0f} held"
+            for row in cell))
 
 
 # ---------------------------------------------------------------------- #
@@ -6018,7 +6188,7 @@ def run_phases(args) -> int:
 
     # 20. the engine-level API: bench.py's dense whole-state merge, then
     # BASELINE's 100k-doc batch, a BatchTranscoder round, the port's amlint
-    run_dense_phase(args, card, device)
+    run_dense_phase(args, table, card, device)
 
     # 21. the per-document fault domains, the causal gate, the batched have
     # filters and a sync sweep with malformed peers

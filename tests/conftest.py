@@ -28,3 +28,8 @@ def pytest_configure(config):
         "slow: long soak configurations (chaos convergence sweeps); "
         "excluded from the tier-1 run (-m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA card (the port's hand-written kernels); skipped "
+        "where there is none",
+    )
